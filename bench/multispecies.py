@@ -1,20 +1,13 @@
-"""Multi-species perf record (VERDICT round-4 item 2).
+"""Multi-species perf record.
 
-The fused Pallas path runs ONE pallas_call per substep covering every
-species: the sequential grid walks all species' blocks back to back and the
-per-species physics constants resolve by a scalar select on the block's
-species index (ops/pallas_kernels.py make_substep_call).  Two measured
-penalties motivated that design, and this probe records both on chip:
+The fused kernels run ONE pallas_call per substep covering every species:
+each block resolves its species' physics constants by a select on the
+species index (ops/pallas_kernels.py make_substep_call).  This probe
+measures what the species fusion costs:
 
   A. 1 species x N markers          — the bench.py headline shape;
-  B. 2 species x N/2 markers each   — same total markers, same stream bytes,
-     through the production fused layout (one call/substep, flat (ns*N,)
-     scan carry).  B/A per-marker ratio ~1.0 = species fusion is free.
-  C. B with PIC1DP_FLAT_CARRY=0     — the stacked (ns, N) scan carry: on
-     TPU a (2, N) array sublane-pads the species dim 2 -> 8, so every
-     kernel call pays a physical relayout to the (rows, 128) blocking.
-     C/B step-time ratio is the relayout penalty the flat carry removes
-     (the "2.6x" cited in core/step.py multi_step_body).
+  B. 2 species x N/2 markers each   — same total markers, same stream bytes.
+     B/A per-marker ratio ~1.0 = species fusion is free.
 
 B is a physically meaningful case: the two-stream pair loaded as two
 separate Maxwellian SPECIES at v0 = +-3, density 0.5 each (the reference's
@@ -23,7 +16,7 @@ single-species two-stream2 composite, so bench/physics.py's two-species row
 can pin gamma against the same dispersion root).
 
 Prints one JSON line with per-config pushes/s (two-point scan-slope, robust
-per-side minima) and the ratios.  Usage:
+per-side minima) and the ratio.  Usage:
     python bench/multispecies.py [n_log2_total=26] [--out FILE]
 """
 
@@ -91,8 +84,7 @@ def main():
         return rate
 
     base = bump_on_tail_default(
-        nx=1024, nparticle_max=n_total, dtype="float32", verbosity=0,
-        bf16_weights=True)
+        nx=1024, nparticle_max=n_total, dtype="float32", verbosity=0)
     rate_a = rate_for(base, "A: 1 species")
 
     sp = SpeciesConfig(charge=-1.0, mass=1.0, temperature=1.0, density=0.5,
@@ -103,23 +95,16 @@ def main():
         species=(sp, dataclasses.replace(sp, v0=-3.0)),
         lx=2.0 * np.pi / 0.2,
     ).validate()
-    rate_b = rate_for(cfg_b, "B: 2 species, flat carry (production)")
-
-    os.environ["PIC1DP_FLAT_CARRY"] = "0"
-    try:
-        rate_c = rate_for(cfg_b, "C: 2 species, stacked (ns, N) carry")
-    finally:
-        del os.environ["PIC1DP_FLAT_CARRY"]
+    rate_b = rate_for(cfg_b, "B: 2 species")
 
     payload = {
         "metric": "multispecies_pushes_per_sec",
         "rate_1species": rate_a,
         "rate_2species_same_total": rate_b,
-        "rate_2species_stacked_carry": rate_c,
         "per_marker_ratio_2sp_over_1sp": rate_b / rate_a,
-        "stacked_carry_step_time_ratio": rate_b / rate_c,
         "n_total": n_total, "steps": steps,
-        "device": f"{dev.platform}:{dev.device_kind}",
+        "device": {"platform": dev.platform, "kind": dev.device_kind,
+                   "count": len(jax.devices())},
     }
     if out_path:
         with open(out_path, "w") as fh:

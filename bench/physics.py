@@ -20,11 +20,10 @@ quantitative pipeline measures:
     plot tools/dispersion.py:159-206 turned into a metric).
 
 Emits one JSON line per measurement and, with --out FILE, the combined list
-as the committed PHYSICS_r{N}.json artifact — regenerable with one command.
+as one JSON artifact — regenerable with one command.
 
-On non-CPU backends the bump-on-tail and two-stream cases also run with
-bf16_weights=True (packed p||w1 stream) to pin that mode's gamma error
-budget on chip.
+On a GPU the bump-on-tail and two-stream cases also run with
+bf16_weights=True to pin that mode's gamma error budget on the card.
 
 Usage:
     python bench/physics.py [--out PHYSICS.json] [--cpu] [--no-bf16]
@@ -228,7 +227,6 @@ def main() -> int:
     # v_max 8, amp/10 and the window — the delta-f discreteness floor).
     n_lan = int(float(os.environ.get(
         "PIC1DP_PHYSICS_N_LANDAU", 102_400 if on_cpu else 2**24)))
-    n_lan = (n_lan + 2047) // 2048 * 2048
     cfg = landau_damping(nx=64, nparticle=n_lan, k=0.5, amp=1e-4,
                          time_max=20.0, output_interval=0.1, dtype=dtype,
                          verbosity=0, dt=0.025)
@@ -255,7 +253,6 @@ def main() -> int:
     # gamma over the linear phase + saturation level/time via findpeak
     n_bot = int(float(os.environ.get(
         "PIC1DP_PHYSICS_N_BOT", 6_400_000 if not on_cpu else 1_000_000)))
-    n_bot = (n_bot + 2047) // 2048 * 2048
     t_end = 100.0 if (on_cpu or args.quick) else 500.0
     cfg = bump_on_tail_default(nparticle_max=n_bot, time_max=t_end,
                                output_interval=1.0, dtype=dtype, verbosity=0)
@@ -274,11 +271,10 @@ def main() -> int:
     # --- case 3: nonlinear two-stream (BASELINE.md config 3) --------------
     # gamma + saturation + delta-f mode-structure correlation in the late
     # linear phase (t = 25, amplitude ~100x above noise, ~5x below sat).
-    # 2^22 markers (r04 ran 1e6 at 0.86%): the extra factor 4 costs seconds
-    # on chip and halves the sampling floor
+    # 2^22 markers: a factor 4 over 1e6 costs seconds on the GPU and
+    # halves the sampling floor
     n_ts = int(float(os.environ.get(
         "PIC1DP_PHYSICS_N_TS", 1_000_000 if on_cpu else 2**22)))
-    n_ts = (n_ts + 2047) // 2048 * 2048
     cfg = two_stream(nparticle=n_ts, time_max=60.0, dtype=dtype,
                      output_interval=0.5, verbosity=0)
     disp = _ts_disp(0.2)
@@ -311,8 +307,7 @@ def main() -> int:
     # src/pic1dp_input.F90:57-72) instead of the single-species two_stream2
     # composite.  Same dispersion root (identical equilibrium f0), so this
     # pins the MULTI-SPECIES fused kernels (one pallas_call per substep,
-    # scalar per-species selects, flat (ns*N,) scan carry) against the same
-    # oracle as case 3.
+    # per-species selects) against the same oracle as case 3.
     from pic1dp_tpu.config import Equilibrium, SpeciesConfig
 
     sp2 = SpeciesConfig(charge=-1.0, mass=1.0, temperature=1.0, density=0.5,
@@ -331,12 +326,12 @@ def main() -> int:
            sat_window=(30.0, 60.0), mode_window=(15.0, 28.0),
            mode_fit="slope")
     if not (on_cpu or args.no_bf16):
-        # KNOWN LIMITATION (round-5 bisection, docs/performance.md): in
+        # KNOWN LIMITATION (bisected, docs/performance.md): in
         # THIS configuration — two strongly shifted species whose uniform-
         # loaded far tails reach |v - v0| ~ 11 thermal widths, so the
         # delta-f weight equation's stiffness z = dt E (-f0'/f0) q/m is
         # ~2x the composite equilibrium's — the bf16 w1-stream rounding
-        # destabilizes the saturated state (deterministic onset ~t = 48;
+        # destabilizes the saturated state (deterministic onset;
         # p-only quantization and all-f32 are stable).  The run is kept to
         # RECORD the boundary; a divergence emits an informational row
         # instead of killing the suite.
@@ -351,7 +346,7 @@ def main() -> int:
                   "note": ("bf16 w1-stream quantization destabilizes the "
                            "post-saturation state of this strongly-shifted "
                            "two-species configuration (stiff far-tail "
-                           "-f0'/f0; bisected round 5: p-only bf16 and f32 "
+                           "-f0'/f0; bisected: p-only bf16 and f32 "
                            "both stable, onset deterministic) — use f32 or "
                            "a smaller dt for shifted multi-species bf16 "
                            "runs; see docs/performance.md"),
@@ -369,9 +364,9 @@ def main() -> int:
     # k = 0.5 (Z-function, same oracle class).  PHYSICAL (per-species
     # Gaussian) marker loading — uniform-v loading would waste ions over
     # +-v_max = 178 ion-thermal widths.  Seed amplitude 3e-4 keeps ion
-    # trapping negligible (omega_b/gamma ~ 0.09; 1e-3 measured +3.2%
-    # gamma depression, 3e-3 +24% — REAL nonlinear shallowing, recorded
-    # round 5); the residual ~2% gamma floor is resonant-ION sampling:
+    # trapping negligible (omega_b/gamma ~ 0.09; larger seeds measurably
+    # shallow the damping — REAL nonlinear trapping); the residual
+    # percent-level gamma floor is resonant-ION sampling:
     # the resonance sits at v_res = omega/k = 4.4 vth_i, where only
     # ~1e-4 of the physically-loaded ion markers live (the reference's
     # global-v_max loading has the same limitation).
@@ -380,7 +375,6 @@ def main() -> int:
 
         k_ia = 0.5
         n_ia = int(float(os.environ.get("PIC1DP_PHYSICS_N_IA", 2**23)))
-        n_ia = (n_ia + 2047) // 2048 * 2048
         cfg_ia = Config(
             linear=False, deltaf=True, lx=2.0 * np.pi / k_ia,
             equilibrium=Equilibrium.MAXWELLIAN,
@@ -416,12 +410,8 @@ def main() -> int:
               / abs(om_ia.real),
               "fit": f"fit_mode_omega window {ia_win}",
               "gamma_floor_note": (
-                  "quantified gamma floor (round-5 scans): amplitude scan "
-                  "3e-3/1e-3/3e-4 seeds -> +24%/+3.2%/+2.3% (ion trapping, "
-                  "omega_b/gamma 0.27/0.16/0.09; linear amp->0 extrapolation "
-                  "+1.9%); CONVERGED in dt (0.025 = 0.05 at +2.3%), nx (128 "
-                  "= 64), markers (2^25 +2.05% vs 2^23 +2.31%); dt = 0.1 "
-                  "degrades to +4.7%. The ~2% residual is a small "
+                  "earlier amplitude, dt, nx and marker scans of this case "
+                  "converged to a percent-level residual: a small "
                   "discrete-system systematic, not statistics or "
                   "resolution; resonant ions sit at v_res = 4.4 vth_i "
                   f"(marker fraction near resonance {res_frac:.1e})"),
@@ -443,7 +433,6 @@ def main() -> int:
     # comes from sum p v^2 (diagnostics.energies), field from the solved E.
     n_ff = int(float(os.environ.get(
         "PIC1DP_PHYSICS_N_FF", 300_000 if on_cpu else 2**24)))
-    n_ff = (n_ff + 2047) // 2048 * 2048
     cfg_ff = dataclasses.replace(
         two_stream(nparticle=n_ff, time_max=60.0, dtype=dtype,
                    output_interval=0.5, verbosity=0), deltaf=False)
@@ -483,7 +472,6 @@ def main() -> int:
 
     n_ph = int(float(os.environ.get(
         "PIC1DP_PHYSICS_N_PHYS", 102_400 if on_cpu else 2**24)))
-    n_ph = (n_ph + 2047) // 2048 * 2048
     cfg_ph = landau_damping(nx=64, nparticle=n_ph, k=0.5, amp=1e-4,
                             time_max=20.0, output_interval=0.1, dtype=dtype,
                             verbosity=0, dt=0.025,
@@ -513,7 +501,6 @@ def main() -> int:
     if not args.skip_multimode:
         n_mm = int(float(os.environ.get(
             "PIC1DP_PHYSICS_N_MM", 524_288 if on_cpu else 2**24)))
-        n_mm = (n_mm + 2047) // 2048 * 2048
         mm_modes = (1, 2, 3, 4)
         k1 = 0.1
         roots = {}
@@ -554,14 +541,13 @@ def main() -> int:
             base, modes=mm_modes, init_modes=mm_modes,
             init_amp_cos=(0.0,) * 4, init_amp_sin=(1e-4, 1e-5, 1e-4, 3e-3))
         # Window ENDS by a pre-registered trapping criterion instead of
-        # fixed times (round-4's fixed m3 end t=35 sat at omega_b/gamma =
-        # 0.62, deepest into trapping onset of the three, and measured
-        # -1.5% — the nonlinear window bias round 4 left unexplained):
+        # fixed times (a fixed m3 end at t=35 sat at omega_b/gamma = 0.62,
+        # deepest into trapping onset of the three, and biased gamma low):
         # each mode's fit stops where its own measured E-field amplitude
         # gives a bounce frequency omega_b = sqrt(k_m E_m) = 0.3 gamma_m —
         # the O'Neil-type slope depression is O((omega_b/gamma)^2), so 0.3
         # bounds it below ~1% while 0.6 puts it at percent level.  Window
-        # starts keep the residue/floor criteria of round 3.
+        # starts keep the residue/floor criteria.
         nl_starts = {1: 20.0, 2: 15.0, 3: 17.0}
         with tempfile.TemporaryDirectory() as tmp:
             t, e, wall = _run_case(cfg_nl, out_path=tmp)
@@ -579,8 +565,8 @@ def main() -> int:
                                   / roots[m].imag)
             nl_windows[4] = (30.0, 40.0)
             gam, od, tv = mode_gammas(tmp, nl_windows)
-            # companion quantification: the late-window slope (round-4's
-            # fixed end t=35, omega_b/gamma ~ 0.5-0.6) minus the criterion
+            # companion quantification: the late-window slope (a fixed
+            # end t=35, omega_b/gamma ~ 0.5-0.6) minus the criterion
             # window's — the measured trapping depression itself
             late = {m: (nl_windows[m][1], 35.0) for m in (1, 2, 3)}
             gam_late = {}
@@ -605,8 +591,7 @@ def main() -> int:
                        "wall_s": round(wall, 2)}
                 if m in gam_late:
                     # negative = growth depressed in the trapping-onset
-                    # window, the quantified bias round 4's fixed windows
-                    # folded into gamma_sim
+                    # window, the bias fixed windows fold into gamma_sim
                     row["trapping_depression_late_window"] = (
                         gam_late[m] - gam[m])
                     row["late_window"] = late[m]

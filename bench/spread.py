@@ -1,4 +1,4 @@
-"""Seeded run-to-run spread artifact (VERDICT round-3 item 3).
+"""Seeded run-to-run spread artifact.
 
 The reference's quantitative pipeline includes group statistics over seeded
 runs — mean/std of gamma, saturation level/time, int E^2 dt over a group
@@ -17,10 +17,10 @@ exercises that exact ported path on REAL multi-run data:
   4. assert gamma_theory lies within the seed spread (mean +- 2 std of the
      mode fit) and report how many seed-sigmas it sits from the mean.
 
-This is what makes single-run saturation numbers in PHYSICS artifacts
-meaningful: the committed mean/std bounds the run-to-run scatter.
+This is what makes single-run saturation numbers meaningful: the mean/std
+bounds the run-to-run scatter.
 
-Usage: python bench/spread.py --out SPREAD_r04.json [--cpu] [--nseeds 8]
+Usage: python bench/spread.py --out spread.json [--cpu] [--nseeds 8]
 Env: PIC1DP_SPREAD_N (markers/run), PIC1DP_SPREAD_TMAX.
 """
 
@@ -75,7 +75,6 @@ def main() -> int:
 
     n = int(float(os.environ.get(
         "PIC1DP_SPREAD_N", 1_000_000 if on_cpu else 6_400_000)))
-    n = (n + 2047) // 2048 * 2048
     t_end = float(os.environ.get(
         "PIC1DP_SPREAD_TMAX", 100.0 if on_cpu else 500.0))
     dtype = "float64" if on_cpu else "float32"

@@ -1,4 +1,4 @@
-"""Assemble WEAKSCALING_r{N}.json (VERDICT round-2 item 7, round-4 item 4).
+"""Assemble a weak-scaling artifact (JSON).
 
 Headline fields, in order of evidential weight:
 
@@ -9,22 +9,21 @@ Headline fields, in order of evidential weight:
   2. `two_process` — the same equal-device-count, equal-work comparison with
      the 4-device mesh split across TWO jax.distributed processes (2+2):
      the per-step mode-projection psums cross a real process boundary
-     through the distributed runtime, the closest available stand-in for
-     the DCN hop (no multi-host hardware is reachable here).
+     through the distributed runtime, a stand-in for the hop between
+     hosts.
   3. `comm_cost_model` — the HLO-pinned communication budget that, combined
-     with 1-2, is the weak-scaling argument for real ICI/DCN meshes.
+     with 1-2, is the weak-scaling argument for real multi-GPU meshes.
   4. `hardware_single_chip_pushes_per_sec` — the per-device rate a real mesh
      would weak-scale from (bench.py headline).
 
 The raw virtual-CPU mesh rows (1..8 devices at fixed per-device load) are
 kept LAST under `plumbing_virtual_mesh`: virtual devices share host cores,
 so their per-device rate falls ~1/n BY CONSTRUCTION — no field named
-"efficiency" is derived from them (the round-4 artifact led with that
-number, 0.279, and it means nothing; the flat TOTAL rate is the only
+"efficiency" is derived from them (the flat TOTAL rate is the only
 plumbing signal in those rows).
 
-Usage: python bench/weak_scaling_artifact.py --out WEAKSCALING_r05.json
-       [--tpu-rate PUSHES_PER_S]   (skip re-running bench.py on chip)
+Usage: python bench/weak_scaling_artifact.py --out weak_scaling.json
+       [--device-rate PUSHES_PER_S]   (skip re-running bench.py on the GPU)
 """
 
 from __future__ import annotations
@@ -73,7 +72,7 @@ def run_worker_pair(nprocs, dev_per_proc, nper, steps):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", required=True)
-    ap.add_argument("--tpu-rate", type=float, default=None,
+    ap.add_argument("--device-rate", type=float, default=None,
                     help="single-chip pushes/s (skips running bench.py)")
     ap.add_argument("--nper", type=int, default=262144)
     ap.add_argument("--steps", type=int, default=5)
@@ -95,12 +94,12 @@ def main():
     row_1p = run_worker_pair(1, 4, args.nper, args.steps)
     row_2p = run_worker_pair(2, 2, args.nper, args.steps)
 
-    if args.tpu_rate is None:
+    if args.device_rate is None:
         env = dict(os.environ, PIC1DP_BENCH_SECONDARY="0")
         out = subprocess.run([sys.executable, os.path.join(REPO, "bench.py")],
                              capture_output=True, text=True, env=env,
                              timeout=3600, check=True)
-        args.tpu_rate = json.loads(out.stdout.splitlines()[-1])["value"]
+        args.device_rate = json.loads(out.stdout.splitlines()[-1])["value"]
 
     artifact = {
         "equal_work_sharding_overhead": {
@@ -116,7 +115,7 @@ def main():
                 row_2p["value"] / row_1p["value"],
             "note": ("same device count, same total work; the 2-process row "
                      "routes every per-step psum through jax.distributed "
-                     "across a real process boundary (DCN stand-in; "
+                     "across a real process boundary (multi-host stand-in; "
                      "reference anchor: 4-rank mpiexec, run/Makefile:38-48)"),
         },
         "comm_cost_model": (
@@ -124,9 +123,9 @@ def main():
             "per device per step, independent of markers and nx (HLO-pinned "
             "by tests/test_parallel.py::"
             "test_sharded_step_communicates_only_mode_scalars); no "
-            "bandwidth term, latency-only -> predicted ICI weak-scaling "
+            "bandwidth term, latency-only -> predicted weak-scaling "
             "efficiency > 99.9% at 2^26 markers/device"),
-        "hardware_single_chip_pushes_per_sec": args.tpu_rate,
+        "hardware_single_chip_pushes_per_sec": args.device_rate,
         "plumbing_virtual_mesh": {
             "rows": virtual,
             "equal_work_single_device_row": equal_work,

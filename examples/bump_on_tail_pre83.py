@@ -12,7 +12,7 @@ kinetic dispersion relation.  Expected output (to a few %%, marker noise):
 
 Usage:  python examples/bump_on_tail_pre83.py [nparticles] [t_end]
         (defaults 1_000_000 and 100; the reference default is 6.4e6 markers
-        to t=500, which also saturates nonlinearly — try it on a TPU)
+        to t=500, which also saturates nonlinearly — try it on a GPU)
 """
 
 import os
@@ -30,7 +30,6 @@ from pic1dp_tpu.config import bump_on_tail_default
 def main() -> int:
     n = int(sys.argv[1]) if len(sys.argv) > 1 else 1_000_000
     t_end = float(sys.argv[2]) if len(sys.argv) > 2 else 100.0
-    n = (n + 1023) // 1024 * 1024  # pallas capacity granularity
 
     cfg = bump_on_tail_default(nparticle_max=n, time_max=t_end,
                                output_interval=1.0, verbosity=1)

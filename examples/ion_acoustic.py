@@ -12,10 +12,9 @@ Parameters: m_i = 25, T_i/T_e = 0.05, k = 0.5 -> omega = 0.09843 - 0.00774j
 marker loading — uniform-v loading would spread ion markers over ~180 ion
 thermal widths.  The seed amplitude matters: 3e-3 shallows the measured
 damping by ~24% through ion trapping (omega_b/gamma ~ 0.27) — a real
-nonlinear effect; 3e-4 keeps the run linear (measured scans in
-PHYSICS_r05.json ion_acoustic_k0.5_mi25).
+nonlinear effect; 3e-4 keeps the run linear (measured amplitude scans).
 
-Usage:  python examples/ion_acoustic.py   (TPU: ~2 min; CPU: very slow —
+Usage:  python examples/ion_acoustic.py   (GPU: minutes; CPU: very slow —
         6400 steps of a slow wave)
 Env:    PIC1DP_EX_N (markers/species, default 2^22), PIC1DP_EX_TMAX (320).
 """
@@ -37,7 +36,6 @@ from pic1dp_tpu.config import (Config, Equilibrium, MarkerLoading,
 
 def main() -> int:
     n = int(float(os.environ.get("PIC1DP_EX_N", 2**22)))
-    n = (n + 1023) // 1024 * 1024
     tmax = float(os.environ.get("PIC1DP_EX_TMAX", 320.0))
 
     import jax

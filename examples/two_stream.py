@@ -9,7 +9,7 @@ Checks, in the reference's own verification methodology (SURVEY.md section 4):
      reference tools/OutputData.py:172-180),
   3. total-energy conservation (KE/2 + int E^2 dx / 2) through saturation.
 
-Usage:  python examples/two_stream.py          (TPU: ~seconds; CPU: minutes)
+Usage:  python examples/two_stream.py          (GPU: seconds; CPU: minutes)
 Env:    PIC1DP_EX_N (markers, default 1e6), PIC1DP_EX_TMAX (default 60).
 """
 
@@ -27,7 +27,6 @@ from pic1dp_tpu.config import two_stream
 
 def main() -> int:
     n = int(float(os.environ.get("PIC1DP_EX_N", 1_000_000)))
-    n = (n + 1023) // 1024 * 1024  # pallas capacity granularity on TPU
     tmax = float(os.environ.get("PIC1DP_EX_TMAX", 80.0))
 
     import jax

@@ -1,10 +1,10 @@
-"""pic1dp_tpu — a TPU-native 1D electrostatic particle-in-cell framework.
+"""pic1dp_tpu — a 1D electrostatic particle-in-cell framework for GPUs.
 
 A from-scratch JAX/XLA/Pallas re-design of the capability surface of
 PIC1D-PETSc (reference: /root/reference): delta-f / full-f Vlasov-Poisson
 simulation in vector-matrix form, with the particle axis sharded over a
-`jax.sharding.Mesh`, charge deposition as MXU-friendly one-hot contractions
-(or fused Pallas kernels), and a spectral partial-DFT field solve.
+`jax.sharding.Mesh`, a matrix-free spectral hot loop (fused Pallas kernels
+on a GPU, plain XLA elsewhere) and a spectral partial-DFT field solve.
 
 Public API:
     Config / SpeciesConfig  — runtime configuration (reference keeps these as

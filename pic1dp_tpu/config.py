@@ -80,11 +80,11 @@ class MarkerLoading(str, enum.Enum):
 class ParticleShape(enum.IntEnum):
     """Shape-matrix strategy (reference input_iptclshape :133-138).
 
-    The reference's four strategies collapse to two meaningful ones on TPU:
+    The reference's four strategies collapse to two meaningful ones here:
       EXPLICIT (1-3): materialize the sparse shape matrix S (COO) and apply
         it via the transposed-pair contraction kernels (ops/shape_matrix.py).
       MATRIX_FREE (4): recompute hat weights on the fly in the fused
-        gather/push/deposit kernels; no storage.  Default, like the reference.
+        gather/push/deposit step; no storage.  Default, like the reference.
     """
 
     EXPLICIT = 1
@@ -94,15 +94,14 @@ class ParticleShape(enum.IntEnum):
 class DepositMethod(str, enum.Enum):
     """Backend for charge deposition / field gather.
 
-    AUTO: PALLAS when running on a TPU backend with a matrix-free shape and
-          a 1024-aligned particle capacity; ONEHOT otherwise (resolved at
-          Stepper construction).
-    ONEHOT: chunked one-hot contraction, MXU matmuls under lax.map (pure XLA).
-    TWOLEVEL: factorized (hi, lo)-digit one-hot contraction — nx/128 + 128
-          compares per entry instead of nx, contraction on the MXU (pure
-          XLA; the fast grid-space path for large nx).
-    SEGMENT: jax segment_sum scatter-add (pure XLA; correctness baseline).
-    PALLAS: fused Pallas TPU kernel (fast path).
+    AUTO: resolved at Stepper construction (core/step.py _auto_method):
+          PALLAS for the matrix-free shape on a GPU backend; otherwise
+          SEGMENT at nx >= 512 and ONEHOT below.
+    ONEHOT: chunked one-hot contraction (pure XLA).
+    TWOLEVEL: factorized (hi, lo)-digit one-hot contraction, nx/128 + 128
+          compares per entry instead of nx (pure XLA; a test reference).
+    SEGMENT: jax segment_sum scatter-add (pure XLA).
+    PALLAS: the fused Triton substep kernels (ops/pallas_kernels.py).
     """
 
     AUTO = "auto"
@@ -152,7 +151,7 @@ class OptimizationConfig:
 class RngConfig:
     """RNG configuration.
 
-    backend "jax": counter-based jax.random streams (TPU-native default).
+    backend "jax": counter-based jax.random streams (the default).
     backend "multirand": deterministic multirand-compatible loading — the
     KISS64 / MT19937-64 / SuperKISS64 engines of reference src/multirand.F90,
     reproduced bit-exactly in pic1dp_tpu.rng.multirand (host-side; used for
@@ -200,7 +199,7 @@ class Config:
     nv: int = 128
     shape: ParticleShape = ParticleShape.MATRIX_FREE
 
-    # TPU-specific numerics (no reference equivalent)
+    # numerics of this implementation (no reference equivalent)
     dtype: str = "float32"            # particle/field dtype
     deposit_method: DepositMethod = DepositMethod.AUTO
     deposit_chunk: int = 16384        # particles per one-hot contraction chunk
@@ -209,28 +208,16 @@ class Config:
     # deposit the FULL grid charge at snapshot time, byte-matching the
     # reference's diagnostic rho stream (costs one histogram per snapshot).
     diag_full_rho: bool = False
-    # Opt-in reduced-precision weight streams for the DMA-bound fused kernel:
-    # store the constant marker weights p and stream the midpoint weights w1
-    # in bfloat16; every arithmetic op stays f32 (values upcast in registers,
-    # and the persistent x/v/w state stays f32).  p and w1 only enter the
-    # delta-f drive (p - w) E (-f0'/f0), so the <=0.4% relative quantization
-    # acts as additional marker-weight loading noise, far below the sampling
-    # noise of any realistic marker count (error budget measured in
-    # docs/performance.md).  Cuts the hot-loop HBM traffic from 13N to 11N
-    # stream-floats per step.  Requires dtype float32; the Pallas path wants
-    # the per-device particle capacity % 2048 == 0 (else it falls back to
-    # the XLA spectral path).
+    # Opt-in reduced-precision weights: store the constant marker weights p
+    # in bfloat16 and round the midpoint weights w1 to bfloat16 before the
+    # substep-2 drive (the midpoint deposit keeps the full-precision w1).
+    # Every path (XLA step, fused kernels, push pair) computes the same
+    # arithmetic.  p and w1 only enter the delta-f drive (p - w) E
+    # (-f0'/f0), so the <=0.4% relative quantization acts as additional
+    # marker-weight loading noise, far below the sampling noise of any
+    # realistic marker count (docs/performance.md).  Requires dtype
+    # float32 and delta-f.
     bf16_weights: bool = False
-    # The fused Pallas step needs the per-trace (per-device) particle length
-    # 1024-aligned (2048 with bf16_weights); misaligned lengths fall back to
-    # the XLA spectral path.  For plain f32 the fallback is physics-
-    # equivalent and only warns, but with bf16_weights the fallback SKIPS
-    # the intra-step w1 quantization — same config, different rounding,
-    # depending on per-shard alignment.  That must never happen silently:
-    # a bf16_weights config whose shards miss the 2048 granularity RAISES
-    # unless this opt-in accepts the (unquantized-w1, no traffic saving)
-    # fallback explicitly.
-    allow_pallas_fallback: bool = False
 
     # optimization schedules
     optimization: OptimizationConfig = OptimizationConfig()
@@ -284,8 +271,8 @@ class Config:
                              "(it is a traffic optimization of the f32 hot "
                              "path; f64 runs want full-precision weights)")
         if self.bf16_weights and not self.deltaf:
-            # the measured error budget (PHYSICS_r02.json: gamma shift
-            # ~0.002 pp on the PRE 83 case) holds for delta-f, where p and
+            # the measured error budget (a gamma shift far below the
+            # sampling noise on the PRE 83 case) holds for delta-f, where p and
             # w1 only enter the drive; in full-f, p IS the deposited charge
             # and with PHYSICAL loading all p are equal, so bf16 rounding
             # becomes a systematic density bias instead of loading noise

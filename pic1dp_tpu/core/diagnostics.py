@@ -7,10 +7,10 @@ Reference equivalents:
   * |delta f|(v) resonance histogram driving merge/remove/split:
     src/pic1dp_particle.F90:356-403
 
-The x-v deposition is formulated TPU-natively as a chunked outer-product
-contraction: for a chunk of C particles the x hat one-hot Xoh (C x nx_opd)
-and v hat one-hot Voh (C x nv_opd) give the 2-D histogram as the MXU matmul
-(Voh * val)^T @ Xoh — no scatter anywhere.
+The x-v deposition is a chunked outer-product contraction: for a chunk of
+C particles the x hat one-hot Xoh (C x nx_opd) and v hat one-hot Voh
+(C x nv_opd) give the 2-D histogram as the matmul (Voh * val)^T @ Xoh — no
+scatter anywhere.
 """
 
 from __future__ import annotations
@@ -106,9 +106,10 @@ def deposit_xv(x, v, vals, lx, v_max, nx: int, nv: int, chunk: int = 16384):
               jnp.where(ix1[:, None] == iota_x, wx1[:, None], 0.0)
         voh = jnp.where(iv0[:, None] == iota_v, wv0[:, None], 0.0) + \
               jnp.where(iv1[:, None] == iota_v, wv1[:, None], 0.0)
-        # (k, C, nv) weighted v one-hot, contracted with x one-hot on MXU
+        # (k, C, nv) weighted v one-hot, contracted with x one-hot
         wvoh = vl[:, :, None] * voh[None, :, :]
-        acc_xv = acc_xv + jnp.einsum("kcj,ci->kji", wvoh, xoh)
+        acc_xv = acc_xv + jnp.einsum("kcj,ci->kji", wvoh, xoh,
+                                     precision=jax.lax.Precision.HIGHEST)
         acc_v = acc_v + jnp.sum(wvoh, axis=1)
         return (acc_xv, acc_v), None
 

@@ -12,7 +12,7 @@ Mirrors reference particle_load (src/pic1dp_particle.F90:145-269):
 
 Two RNG backends:
   * "jax": counter-based jax.random streams, decorrelated across shards by
-    construction (TPU-native default).
+    construction (the default).
   * "multirand": bit-exact reproduction of the reference's multirand engines
     (pic1dp_tpu.rng.multirand), drawing in the same order as the reference so
     a constant-seed run loads the identical markers.

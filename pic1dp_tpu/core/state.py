@@ -2,7 +2,7 @@
 
 The reference holds particle data in PETSc distributed Vecs of fixed length
 nparticle_max per species (reference src/pic1dp_particle.F90:34-54) plus a
-per-rank live count `particle_np`.  XLA wants static shapes, so the TPU-native
+per-rank live count `particle_np`.  XLA wants static shapes, so the
 equivalent is fixed-capacity (nspecies, nparticle_max) arrays with a boolean
 `live` mask; merge/remove/split toggle mask bits instead of compacting.
 

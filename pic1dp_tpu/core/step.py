@@ -20,11 +20,12 @@ reference src/pic1dp_interaction.F90:51-70,142-148) and the partial-DFT field
 solve.  Both substeps live inside ONE jitted function, so the x/v/w backups
 (reference Vecs src/pic1dp_particle.F90:34-36) are compiler temporaries.
 
-The step is written in pure jnp on stacked (nspecies, nparticle) arrays;
-under pjit with the particle axis sharded, XLA turns the deposition reduction
-into local partial sums + an ICI psum automatically — the TPU-native
-equivalent of the reference's replicate-and-MPI_Allreduce deposition
-(src/pic1dp_interaction.F90:130-135).
+The step is written on stacked (nspecies, nparticle) arrays; with the
+particle axis sharded, the deposition reduction becomes local partial sums +
+a psum — the equivalent of the reference's replicate-and-MPI_Allreduce
+deposition (src/pic1dp_interaction.F90:130-135).  On a GPU the matrix-free
+step runs as two fused Triton kernels (ops/pallas_kernels.py); the plain
+XLA step below is the path elsewhere and the kernels' reference.
 """
 
 from __future__ import annotations
@@ -46,66 +47,55 @@ from pic1dp_tpu.ops.interp import wrap_x
 from pic1dp_tpu.ops.spectral import SpectralOperator
 
 
+def _auto_method(cfg: Config) -> DepositMethod:
+    """Resolve DepositMethod.AUTO from what the code can observe.
+
+    Matrix-free shape: the fused Triton kernels wherever they compile (a
+    GPU backend); they beat XLA's step 2.8-3.0x on the H100 in every
+    measured configuration (PERF.md, H100 bring-up).  Elsewhere the XLA
+    step.  Grid-path deposits: XLA's scatter (segment_sum, atomics on a
+    GPU) at nx >= 512, where it wins 5-40x; the flat one-hot below, where
+    the two are within 12% of each other and the scatter's atomics contend
+    on few cells."""
+    if (cfg.shape == ParticleShape.MATRIX_FREE
+            and jax.default_backend() == "gpu"):
+        return DepositMethod.PALLAS
+    return DepositMethod.SEGMENT if cfg.nx >= 512 else DepositMethod.ONEHOT
+
+
 class Stepper:
     """Precompiled step functions for a fixed Config.
 
     `axis_name` makes every grid reduction finish with a psum over that mesh
     axis — set when the particle axis is sharded under shard_map
-    (parallel/mesh.py); None on a single device.  This is the TPU-native
-    analogue of the reference's deposit-then-MPI_Allreduce pattern
+    (parallel/mesh.py); None on a single device.  This is the analogue of
+    the reference's deposit-then-MPI_Allreduce pattern
     (src/pic1dp_interaction.F90:130-135): each device deposits its particle
-    shard onto a private full grid and the partial grids ride ICI.
+    shard and the partial sums are reduced over NCCL.
     """
 
-    def __init__(self, cfg: Config, axis_name: str | None = None):
+    def __init__(self, cfg: Config, axis_name: str | None = None,
+                 interpret: bool = False):
+        """`interpret=True` runs the fused Pallas step (deposit_method
+        PALLAS) in the Pallas interpreter, which is how it is tested off the
+        GPU; it is never chosen implicitly."""
         cfg.validate()
         self.cfg = cfg
         self.axis_name = axis_name
+        self.interpret = interpret
         self._fused = None  # lazily built FusedStepper (pallas path)
-        # resolve DepositMethod.AUTO: fused Pallas on a TPU backend when the
-        # config is eligible, pure-XLA one-hot everywhere else
         self.deposit_method = cfg.deposit_method
-        # fused-kernel capacity granularity: 1024 (f32 streams), 2048 when
-        # bf16_weights adds (16, 128)-tiled bf16 streams
-        self._pallas_align = 2048 if cfg.p_dtype != cfg.dtype else 1024
         if self.deposit_method == DepositMethod.AUTO:
-            eligible = (cfg.shape == ParticleShape.MATRIX_FREE
-                        and cfg.nparticle_max % self._pallas_align == 0)
-            if eligible and jax.default_backend() == "tpu":
-                self.deposit_method = DepositMethod.PALLAS
-            elif jax.default_backend() == "tpu" and cfg.nx >= 2048:
-                # grid-path deposits on TPU: XLA's scatter lowering overtakes
-                # the flat one-hot at large nx (measured 3x at nx=4096,
-                # docs/performance.md)
-                self.deposit_method = DepositMethod.SEGMENT
-            else:
-                self.deposit_method = DepositMethod.ONEHOT
-        # grid-path gather: dynamic takes serialize on TPU (measured ~10x
-        # slower than the factorized one-hot at 16M entries), so TPU backends
-        # use the twolevel contraction; CPU keeps plain take
+            self.deposit_method = _auto_method(cfg)
         self.gather_method = (
-            "twolevel"
-            if (self.deposit_method == DepositMethod.TWOLEVEL
-                or jax.default_backend() == "tpu")
+            "twolevel" if self.deposit_method == DepositMethod.TWOLEVEL
             else "take")
         self.dtype = jnp.dtype(cfg.dtype)
-        # packed p||w1 fused-kernel layout (ops/pallas_kernels.pack_pw):
-        # 12 N f32 stream-floats per step with every tile f32 — the default
-        # bf16_weights data path (the separate bf16 p stream costs +30% on
-        # this Mosaic version, docs/performance.md).  PIC1DP_PACKED=0 or a
-        # PIC1DP_BF16_STREAMS bisection selection reverts to separate
-        # bf16 streams.
-        import os
-
-        self._packed = (cfg.bf16_weights and cfg.deltaf
-                        and self.dtype == jnp.float32
-                        and os.environ.get("PIC1DP_BF16_STREAMS") is None
-                        and bool(int(os.environ.get("PIC1DP_PACKED", "1"))))
         if cfg.bf16_weights and cfg.nspecies > 1 and any(
                 abs(s.v0) > 2.0 * (s.temperature / s.mass) ** 0.5
                 for s in cfg.species):
-            # measured limitation (docs/performance.md round 5): the bf16
-            # w1-stream rounding destabilizes the post-saturation vortex
+            # measured limitation (docs/performance.md): the bf16 w1
+            # rounding destabilizes the post-saturation vortex
             # reorganization of strongly shifted multi-species equilibria
             # (deterministic divergence, dt/seed-independent; f32 and
             # p-only quantization stable).  Single-species composite
@@ -115,17 +105,10 @@ class Stepper:
             warnings.warn(
                 "bf16_weights with multiple strongly shifted species "
                 "(|v0| > 2 vth) has a measured post-saturation divergence "
-                "(bf16 w1-stream rounding amplifies the vortex-merging "
-                "transient; docs/performance.md round 5). Use f32, the "
+                "(bf16 w1 rounding amplifies the vortex-merging "
+                "transient; docs/performance.md). Use f32, the "
                 "equivalent single-species composite equilibrium, or stop "
                 "before deep saturation.", RuntimeWarning, stacklevel=3)
-        # stream the midpoint velocities v1 between the fused substeps
-        # instead of recomputing them: +2N HBM floats for one less trig
-        # gather chain — the right trade once the kernels are VPU-bound
-        # (PIC1DP_STREAM_V1=0 reverts to the recompute layout)
-        self._stream_v1 = (not cfg.linear and cfg.deltaf
-                           and bool(int(os.environ.get(
-                               "PIC1DP_STREAM_V1", "1"))))
         self.spectral = SpectralOperator.create(cfg.nx, cfg.modes, cfg.lx, self.dtype)
         self.sp = dist.SpeciesParams.from_config(cfg, self.dtype)
         self.step = jax.jit(self._step)
@@ -202,7 +185,7 @@ class Stepper:
     # ---- matrix-free spectral hot path (cfg.shape == MATRIX_FREE) ----
     #
     # The reference's iptclshape=4 recomputes the shape on the fly instead of
-    # storing S (src/pic1dp_particle.F90:133-138); the TPU-native analogue
+    # storing S (src/pic1dp_particle.F90:133-138); the analogue here
     # goes further: the hot loop composes hat interpolation with the partial
     # DFT so no nx-grid is ever touched (see ops/spectral.py).  The grid path
     # below (_step_grid) is the explicit-S analogue and the cross-check.
@@ -238,9 +221,19 @@ class Stepper:
         v_new = v if cfg.linear else v_bak + dt_eff * e_p * q_over_m
         return x_new, v_new, w_new
 
-    def _step_spectral(self, state: SimState) -> SimState:
-        """One RK2 step, matrix-free: trig at the substep-1 deposit positions
-        is reused for the substep-2 gather."""
+    def _quantize_w1(self, w1):
+        """With cfg.bf16_weights the midpoint weights enter the substep-2
+        drive rounded to bfloat16 (the fused kernel's arithmetic too); the
+        midpoint projections keep the full-precision w1."""
+        if self.cfg.bf16_weights:
+            return w1.astype(jnp.bfloat16).astype(w1.dtype)
+        return w1
+
+    def _spectral_pushes(self, state: SimState):
+        """Both RK substep pushes of the matrix-free step: the trig at the
+        substep-1 deposit positions is reused for the substep-2 gather.
+        Returns the pushed (x2, v2, w2), the midpoint modes and the raw
+        midpoint projections."""
         cfg = self.cfg
         dt = jnp.asarray(cfg.dt, self.dtype)
         x0, v0, w0 = state.x, state.v, state.w
@@ -251,17 +244,26 @@ class Stepper:
         e_p0 = spectral_ops.efield_at(t0, state.mode_re, state.mode_im)
         x1, v1, w1 = self._push_math(e_p0, x0, v0, p, w0, x0, v0, w0, 0.5 * dt)
         t1 = self._trig(x1)
-        (mre1, mim1), _ = self._project_and_solve(t1, p, w1, live)
+        (mre1, mim1), proj1 = self._project_and_solve(t1, p, w1, live)
 
         # substep 2: gather at x1 from the midpoint field (trig reused)
         e_p1 = spectral_ops.efield_at(t1, mre1, mim1)
-        x2, v2, w2 = self._push_math(e_p1, x1, v1, p, w1, x0, v0, w0, dt)
-        t2 = self._trig(x2)
-        (mre2, mim2), (p_c, p_s) = self._project_and_solve(t2, p, w2, live)
+        x2, v2, w2 = self._push_math(e_p1, x1, v1, p, self._quantize_w1(w1),
+                                     x0, v0, w0, dt)
+        return (x2, v2, w2), (mre1, mim1), proj1
 
+    def _step_spectral(self, state: SimState) -> SimState:
+        """One RK2 step, matrix-free, in plain XLA."""
+        (x2, v2, w2), _, _ = self._spectral_pushes(state)
+        t2 = self._trig(x2)
+        (mre2, mim2), (p_c, p_s) = self._project_and_solve(
+            t2, state.p, w2, state.live)
+        return self._finish(state, x2, v2, w2, mre2, mim2, p_c, p_s)
+
+    def _finish(self, state, x2, v2, w2, mre2, mim2, p_c, p_s) -> SimState:
         electric = self.spectral.e_grid(mre2, mim2)
-        rho = self.spectral.rho_grid_from_projections(p_c, p_s, cfg.lx)
-        return SimState(x=x2, v=v2, p=p, w=w2, live=live,
+        rho = self.spectral.rho_grid_from_projections(p_c, p_s, self.cfg.lx)
+        return SimState(x=x2, v=v2, p=state.p, w=w2, live=state.live,
                         rho=rho, electric=electric, mode_re=mre2, mode_im=mim2)
 
     # ---- jitted entry points ----
@@ -285,122 +287,36 @@ class Stepper:
     def _step(self, state: SimState) -> SimState:
         """One full RK2 step (two substeps), no particle optimization."""
         if self.cfg.shape == ParticleShape.MATRIX_FREE:
-            # The fused kernel needs the PER-TRACE particle length (the
-            # per-device shard under shard_map) 1024-aligned (2048 with
-            # bf16_weights); fall back to the XLA spectral path otherwise
-            # instead of crashing.
             if self.deposit_method == DepositMethod.PALLAS:
-                if state.x.shape[-1] % self._pallas_align == 0:
-                    return self._step_spectral_pallas(state)
-                self._warn_pallas_fallback(state.x.shape[-1])
+                return self._step_spectral_pallas(state)
             return self._step_spectral(state)
         return self._step_grid(state)
 
-    def _warn_pallas_fallback(self, length: int) -> None:
-        """Trace-time fallback gate: the Pallas path was requested (or
-        AUTO-resolved) but this trace's per-device particle length misses the
-        capacity granularity, so the run takes the XLA spectral path instead.
-        For plain-precision configs the fallback is physics-equivalent and
-        only warns once.  With bf16_weights the fallback SKIPS the intra-step
-        w1 quantization — the same config would produce different rounding
-        depending on per-shard alignment — so it RAISES unless
-        cfg.allow_pallas_fallback opts in explicitly."""
-        quantized = self.cfg.p_dtype != self.cfg.dtype
-        if quantized and not self.cfg.allow_pallas_fallback:
-            raise ValueError(
-                f"bf16_weights requested but the per-trace particle length "
-                f"{length} is not a multiple of {self._pallas_align}, so the "
-                f"fused Pallas kernels (which carry the w1-stream "
-                f"quantization) cannot run; the XLA fallback would silently "
-                f"change the physics rounding. Pad nparticle_max so every "
-                f"per-device shard is a multiple of {self._pallas_align}, or "
-                f"set allow_pallas_fallback=True to accept the unquantized "
-                f"fallback explicitly.")
-        if getattr(self, "_pallas_fallback_warned", False):
-            return
-        self._pallas_fallback_warned = True
-        import warnings
-
-        extra = ("; bf16_weights' w1-stream quantization is inactive on "
-                 "this path" if quantized else "")
-        warnings.warn(
-            f"Pallas step requested but the per-trace particle length "
-            f"{length} is not a multiple of {self._pallas_align}; falling "
-            f"back to the XLA spectral path{extra}. Pad nparticle_max (per "
-            f"device) to a multiple of {self._pallas_align} to enable the "
-            f"fused kernels.", RuntimeWarning, stacklevel=3)
-
     def _get_fused(self):
-        import os
-
         from pic1dp_tpu.ops.pallas_kernels import FusedStepper
 
         if self._fused is None:
-            # PIC1DP_PALLAS_ROWS: block-row sweep knob for on-chip tuning
-            # (default 256, the v5e optimum: same-day sweep at 2^24 AND 2^26
-            # markers; 128 loses ~8% at 2^26 — docs/performance.md round 4)
-            self._fused = FusedStepper(
-                self.cfg, axis_name=self.axis_name, packed=self._packed,
-                stream_v1=self._stream_v1,
-                max_rows=int(os.environ.get("PIC1DP_PALLAS_ROWS", "256")))
+            self._fused = FusedStepper(self.cfg, interpret=self.interpret,
+                                       axis_name=self.axis_name)
         return self._fused
 
     def _step_spectral_pallas(self, state: SimState) -> SimState:
         """Matrix-free RK2 step with both substeps as fused Pallas kernels
-        (ops/pallas_kernels.py); mode solve between them is scalar work.
-        The midpoint positions/velocities (x1, v1) never leave VMEM —
-        substep 2 recomputes them bitwise-identically from the step-start
-        state and mode scalars; only the midpoint weights w1 are streamed
-        (recomputing those too measures slower, see docs/performance.md)."""
-        import dataclasses
-
-        fused = self._get_fused()
-        if fused.packed:
-            # single-step entry: pack p||w1 for this step only (make_multi_
-            # step carries the packed stream across the whole scan instead).
-            # Bitwise-identical physics either way — the packed kernels
-            # quantize with the same RTNE as .astype(bfloat16).
-            from pic1dp_tpu.ops.pallas_kernels import pack_pw
-
-            carry = dataclasses.replace(state, p=pack_pw(state.p))
-            out = self._step_packed_carry(carry)
-            return dataclasses.replace(out, p=state.p)
-        return self._step_pallas_body(state, state.p)
-
-    def _step_packed_carry(self, state: SimState) -> SimState:
-        """One packed-carry RK2 step: state.p holds the packed p||w1 f32
-        stream (ops/pallas_kernels.pack_pw); the returned state carries the
-        refreshed stream (same p halves) so a lax.scan never re-packs."""
-        return self._step_pallas_body(state, state.p, packed_carry=True)
-
-    def _step_pallas_body(self, state: SimState, p_stream,
-                          packed_carry: bool = False) -> SimState:
+        (ops/pallas_kernels.py); the mode solve between them is scalar
+        work."""
         fused = self._get_fused()
         cfg = self.cfg
-        x0, v0, w0 = state.x, state.v, state.w
-        live = state.live
-
-        w1, v1, (pc1, ps1) = fused.substep1(
-            x0, v0, p_stream, w0, state.mode_re, state.mode_im)
-        pc1, ps1 = self._psum((pc1, ps1))
+        x0, v0, p, w0 = state.x, state.v, state.p, state.w
+        pc1, ps1 = self._psum(fused.substep1(
+            x0, v0, p, w0, state.mode_re, state.mode_im))
         mre1, mim1 = spectral_ops.solve_modes_from_projections(
             pc1, ps1, self.spectral.grad_inv, cfg.lx)
-
-        # packed mode: substep 1's output IS the refreshed p||w1 stream,
-        # consumed by substep 2 in the p slot (the original was donated)
-        p2 = w1 if fused.packed else p_stream
         x2, v2, w2, (pc2, ps2) = fused.substep2(
-            x0, v0, p2, w0, None if fused.packed else w1,
-            state.mode_re, state.mode_im, mre1, mim1, v1=v1)
+            x0, v0, p, w0, state.mode_re, state.mode_im, mre1, mim1)
         pc2, ps2 = self._psum((pc2, ps2))
         mre2, mim2 = spectral_ops.solve_modes_from_projections(
             pc2, ps2, self.spectral.grad_inv, cfg.lx)
-
-        electric = self.spectral.e_grid(mre2, mim2)
-        rho = self.spectral.rho_grid_from_projections(pc2, ps2, cfg.lx)
-        p_out = p2 if packed_carry else state.p
-        return SimState(x=x2, v=v2, p=p_out, w=w2, live=live,
-                        rho=rho, electric=electric, mode_re=mre2, mode_im=mim2)
+        return self._finish(state, x2, v2, w2, mre2, mim2, pc2, ps2)
 
     def _step_grid(self, state: SimState) -> SimState:
         """Grid-histogram RK2 step (explicit-shape analogue, cross-check
@@ -423,77 +339,15 @@ class Stepper:
         return SimState(x=x2, v=v2, p=p, w=w2, live=live,
                         rho=rho2, electric=e2, mode_re=mre, mode_im=mim)
 
-    def _packed_scan_ok(self, n_trace: int) -> bool:
-        """Packed-carry scan eligibility for a per-trace particle length."""
-        return (self._packed
-                and self.cfg.shape == ParticleShape.MATRIX_FREE
-                and self.deposit_method == DepositMethod.PALLAS
-                and n_trace % self._pallas_align == 0)
-
     def multi_step_body(self, state: SimState, k: int) -> SimState:
         """k-step advance via lax.scan — the traced body shared by
         make_multi_step (single device) and ShardedStepper.make_multi_step
-        (called inside shard_map, where `state` carries the per-device
-        shards, so the packed/flat eligibility checks below see the
-        per-device length — exactly what the kernels see).
-
-        With packed bf16 weights the scan carries the packed p||w1 stream:
-        packed once before the loop, p restored after — the per-step body
-        then streams 12 N f32 with every write aliased in place.
-
-        On the Pallas path the carry's particle arrays are FLATTENED to
-        (ns*N,) for the scan: a (ns, N) array on TPU is tiled over its last
-        two dims, so ns > 1 sublane-pads the species dim and every kernel
-        call pays a physical relayout to the (rows, 128) blocking (measured
-        2.71x step time at ns = 2 on chip, MULTISPECIES_r05.json); flat
-        buffers reshape layout-free.  The
-        flatten/unflatten happens once per dispatch, not per step."""
-        import dataclasses
-
-        import os
-
+        (called inside shard_map on the per-device shards)."""
         def body(state, _):
             return self._step(state), None
 
-        def body_packed(state, _):
-            return self._step_packed_carry(state), None
-
-        # PIC1DP_FLAT_CARRY=0: A/B knob that keeps the stacked (ns, N)
-        # carry, reproducing the sublane-relayout penalty the flat layout
-        # removes (bench/multispecies.py measures both)
-        use_flat = (self.deposit_method == DepositMethod.PALLAS
-                    and self.cfg.shape == ParticleShape.MATRIX_FREE
-                    and bool(int(os.environ.get("PIC1DP_FLAT_CARRY", "1"))))
-
-        def flatten(state):
-            return dataclasses.replace(
-                state, x=state.x.reshape(-1), v=state.v.reshape(-1),
-                p=state.p.reshape(-1), w=state.w.reshape(-1))
-
-        def unflatten(state, like):
-            return dataclasses.replace(
-                state, x=state.x.reshape(like.x.shape),
-                v=state.v.reshape(like.v.shape),
-                p=state.p.reshape(like.p.shape),
-                w=state.w.reshape(like.w.shape))
-
-        # flat only when this trace's per-device length really takes
-        # the Pallas path (misaligned lengths fall back to the XLA
-        # spectral step, which needs the (ns, N) stacking)
-        flat = use_flat and state.x.shape[-1] % self._pallas_align == 0
-        if self._packed_scan_ok(state.x.shape[-1]):
-            from pic1dp_tpu.ops.pallas_kernels import pack_pw
-
-            carry = dataclasses.replace(state, p=pack_pw(state.p))
-            if flat:
-                carry = flatten(carry)
-            out, _ = jax.lax.scan(body_packed, carry, None, length=k)
-            if flat:
-                out = unflatten(out, state)
-            return dataclasses.replace(out, p=state.p)
-        carry = flatten(state) if flat else state
-        out, _ = jax.lax.scan(body, carry, None, length=k)
-        return unflatten(out, state) if flat else out
+        out, _ = jax.lax.scan(body, state, None, length=k)
+        return out
 
     def make_multi_step(self, k: int):
         """Jitted k-step advance: one dispatch, one compiled loop —
@@ -510,25 +364,20 @@ class Stepper:
         Returns the state after substep 2's push with stale field quantities.
         """
         cfg = self.cfg
-        dt = jnp.asarray(cfg.dt, self.dtype)
-        x0, v0, w0 = state.x, state.v, state.w
-        p, live = state.p, state.live
         if cfg.shape == ParticleShape.MATRIX_FREE:
-            t0 = self._trig(x0)
-            e_p0 = spectral_ops.efield_at(t0, state.mode_re, state.mode_im)
-            x1, v1, w1 = self._push_math(e_p0, x0, v0, p, w0, x0, v0, w0, 0.5 * dt)
-            t1 = self._trig(x1)
-            (mre1, mim1), (p_c, p_s) = self._project_and_solve(t1, p, w1, live)
-            e_p1 = spectral_ops.efield_at(t1, mre1, mim1)
-            x2, v2, w2 = self._push_math(e_p1, x1, v1, p, w1, x0, v0, w0, dt)
+            (x2, v2, w2), (mre1, mim1), (p_c, p_s) = \
+                self._spectral_pushes(state)
             rho1 = self.spectral.rho_grid_from_projections(p_c, p_s, cfg.lx)
             e1 = self.spectral.e_grid(mre1, mim1)
         else:
+            dt = jnp.asarray(cfg.dt, self.dtype)
+            x0, v0, w0 = state.x, state.v, state.w
+            p, live = state.p, state.live
             x1, v1, w1 = self._push(x0, v0, p, w0, x0, v0, w0, state.electric, 0.5 * dt)
             rho1 = self.deposit_charge(x1, p, w1, live)
             e1, _, _ = self.solve_field(rho1)
             x2, v2, w2 = self._push(x1, v1, p, w1, x0, v0, w0, e1, dt)
-        return SimState(x=x2, v=v2, p=p, w=w2, live=live,
+        return SimState(x=x2, v=v2, p=state.p, w=w2, live=state.live,
                         rho=rho1, electric=e1, mode_re=state.mode_re,
                         mode_im=state.mode_im)
 

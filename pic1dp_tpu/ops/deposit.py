@@ -4,20 +4,20 @@ The reference deposits particle weights onto the grid either through a PETSc
 shape-matrix transpose SpMV (reference src/pic1dp_interaction.F90:46-78) or a
 per-rank local array accumulation followed by MPI_Allreduce (:80-151).
 
-TPU has no fast random scatter, so the TPU-native formulation turns the
-scatter into a dense contraction: for a chunk of C particles build the hat
-"one-hot" matrix H (C x nx) with w0 at column ix0 and w1 at column ix1, and
-reduce over the particle axis — an MXU/VPU-friendly reduction XLA fuses
-without materializing H in HBM.  Chunks stream through a lax.scan carry so
-memory stays O(chunk * nx).
+Two formulations are kept.  XLA's scatter-add (segment_sum, atomics on a
+GPU) is the fast one at large nx.  The one-hot form turns the scatter into
+a dense contraction: for a chunk of C particles build the hat "one-hot"
+matrix H (C x nx) with w0 at column ix0 and w1 at column ix1, and reduce
+over the particle axis — a reduction XLA fuses without materializing H in
+device memory.  Chunks stream through a lax.scan carry so memory stays
+O(chunk * nx).  core/step.py picks between them by nx.
 
 Under pjit/shard_map with the particle axis sharded, each device reduces its
 own chunk stream and the per-device partial grids are combined with a psum —
-exactly the reference's replicate-and-Allreduce strategy (SURVEY.md 2.3) with
-the Allreduce riding ICI.
+exactly the reference's replicate-and-Allreduce strategy (SURVEY.md 2.3).
 
-A segment-sum variant is kept as a correctness baseline; the Pallas fused
-kernel (ops/pallas_kernels.py) is the production path.
+The matrix-free hot loop never deposits on a grid: its fused kernels
+(ops/pallas_kernels.py) accumulate mode projections instead.
 """
 
 from __future__ import annotations
@@ -70,31 +70,25 @@ def deposit_onehot(x: jnp.ndarray, val: jnp.ndarray, lx, nx: int,
     return grid
 
 
-_LANES = 128  # TPU vector lane width; the lo-digit radix
+_LANES = 128  # the lo-digit radix
 
 
 @functools.partial(jax.jit, static_argnames=("nx", "chunk"))
 def deposit_twolevel(x: jnp.ndarray, val: jnp.ndarray, lx, nx: int,
                      chunk: int = 16384) -> jnp.ndarray:
-    """Two-level factorized one-hot deposit (the TPU-native SpMV-transpose
-    for larger grids).
+    """Two-level factorized one-hot deposit (a test reference for the
+    SpMV transpose).
 
     Splitting each cell index as ix = 128*hi + lo factorizes the (C, nx)
     one-hot into an outer product of a (C, nx/128) hi-one-hot and a (C, 128)
-    lo-one-hot, so the whole deposit becomes the MXU contraction
+    lo-one-hot, so the whole deposit becomes the contraction
 
         grid2d[h, l] = sum_c hi_onehot[c, h] * (val*w)[c] * lo_onehot[c, l]
 
-    Versus the flat one-hot (deposit_onehot) this cuts the VPU compare work
-    per entry from nx to nx/128 + 128 (e.g. 24x at nx=4096) and moves the
-    remaining work onto the MXU.  Bitwise-equal contributions per particle;
-    only the f32 summation order differs.
-
-    Measured on one v5e (16M entries, docs/performance.md): ~2.2x the flat
-    one-hot at nx=4096 but ~0.5x at nx=1024 — XLA materializes the one-hot
-    matmul operands to HBM, which the fused compare-select-reduce of
-    deposit_onehot avoids.  The factorization's big win is the GATHER side
-    (ops/gather.py): same trick, ~10x over dynamic take on TPU.
+    which cuts the compare work per entry from nx to nx/128 + 128.
+    Bitwise-equal contributions per particle; only the f32 summation order
+    differs.  On the H100 it loses to both the flat one-hot and the scatter
+    at every measured nx (PERF.md).
     """
     nhi = (nx + _LANES - 1) // _LANES
     (x, val), _ = _pad_to_multiple((x, val), chunk, (0.0, 0.0))

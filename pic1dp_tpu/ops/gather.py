@@ -5,9 +5,11 @@ with the same hat weights used for deposition (reference
 src/pic1dp_interaction.F90:239-258, or MatMult(S, E) for the explicit-matrix
 strategies :213-220).
 
-On TPU a random gather from a tiny (nx <= 4096) replicated grid vector is a
-dynamic-gather; XLA handles it acceptably, and jnp.take is the baseline here.
-The Pallas fused kernel replaces it with an in-VMEM one-hot matvec.
+A random gather from a tiny (nx <= 4096) replicated grid vector is a
+dynamic gather; jnp.take is the production choice (the fastest on the H100
+and the CPU, PERF.md).  The one-hot and two-level forms are test references.
+The matrix-free hot loop gathers from its kept modes instead (ops/spectral.py,
+ops/pallas_kernels.py).
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ def gather_take(x: jnp.ndarray, grid: jnp.ndarray, lx, nx: int) -> jnp.ndarray:
 def gather_onehot(x: jnp.ndarray, grid: jnp.ndarray, lx, nx: int,
                   chunk: int = 16384) -> jnp.ndarray:
     """One-hot contraction gather: E_p = H @ grid, chunked.  Avoids dynamic
-    gather entirely (MXU matvec per chunk)."""
+    gather entirely (one matvec per chunk)."""
     n = x.shape[0]
     rem = (-n) % chunk
     xp = jnp.pad(x, (0, rem)) if rem else x
@@ -43,13 +45,13 @@ def gather_onehot(x: jnp.ndarray, grid: jnp.ndarray, lx, nx: int,
         ix0, ix1, w0, w1 = hat_x(xs, lx, nx)
         onehot = jnp.where(ix0[:, None] == iota, w0[:, None], 0.0) + \
                  jnp.where(ix1[:, None] == iota, w1[:, None], 0.0)
-        return onehot @ grid
+        return jnp.matmul(onehot, grid, precision=jax.lax.Precision.HIGHEST)
 
     out = jax.lax.map(body, xc).reshape(-1)
     return out[:n]
 
 
-_LANES = 128  # TPU vector lane width; the lo-digit radix
+_LANES = 128  # the lo-digit radix
 
 
 def _grid2d(grid: jnp.ndarray, nx: int):
@@ -63,10 +65,8 @@ def _take2(ix: jnp.ndarray, grid2d: jnp.ndarray) -> jnp.ndarray:
 
         out[c] = sum_l (hi_onehot[c, :] @ grid2d)[l] * lo_onehot[c, l]
 
-    — one MXU matmul against the (nx/128, 128) grid tile plus nx/128 + 128
-    compares per entry.  Dynamic gathers serialize on TPU (measured ~10x
-    slower than this at 16M entries, docs/performance.md); on CPU plain
-    jnp.take wins."""
+    — one matmul against the (nx/128, 128) grid tile plus nx/128 + 128
+    compares per entry."""
     nhi = grid2d.shape[0]
     oh_hi = ((ix // _LANES)[:, None]
              == jnp.arange(nhi, dtype=jnp.int32)).astype(grid2d.dtype)

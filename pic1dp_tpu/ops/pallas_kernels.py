@@ -1,57 +1,31 @@
-"""Fused gather->push->deposit Pallas TPU kernel for one RK substep.
+"""Fused gather->push->deposit kernels for the matrix-free RK2 step, written
+in Pallas for the Triton route (`backend="triton"`).
 
-The matrix-free spectral formulation (ops/spectral.py) makes the whole
-substep pure elementwise work plus tiny reductions, but under plain XLA the
-trig/weight intermediates (6+ arrays of N floats per mode) round-trip through
-HBM because they have multiple consumers.  This kernel runs the entire
-substep — kept-mode E gather at the current positions, the reference's push
-ordering (x, then w with the analytic -f0'/f0, then v; reference
-src/pic1dp_interaction.F90:238-339), and the mode-projection deposit at the
-new positions — in one pass with every intermediate living in VMEM/registers.
+The matrix-free spectral formulation (ops/spectral.py) makes a substep pure
+elementwise work plus a few global sums, but the trig/hat-weight
+intermediates of substep 1 are needed on both sides of the mode solve, and
+XLA cannot fuse across that reduction.  These two kernels move only the
+particle streams:
 
-HBM traffic is exactly the particle state streams.  The kernels are
-VPU-BOUND on the per-marker trig chains, not DMA-bound (round-5 probes:
-the in-place aliased stream pattern alone runs ~830 GB/s while the full
-kernels sit ~35% above their DMA floor; docs/performance.md round-5
-section) — which is why the midpoint streams are chosen to MINIMIZE
-COMPUTE, not bytes: the midpoint positions never touch HBM (substep 2
-recomputes x1 = wrap(x0 + dt/2 v0) in-register, bitwise identical), while
-the midpoint weights w1 AND velocities v1 are streamed — recomputing v1
-would re-run a gather trig chain (measured slower than its +2 N stream
-floats), and recomputing w1 would add the -f0'/f0 drive chain on top.
-For the nonlinear delta-f case (stream_v1, the default):
+    kernel 1:  read x0, v0, p, w0      -> per-block partial projections at x1
+    kernel 2:  read x0, v0, p, w0      -> write x2, v2, w2 (in place)
+                                          + per-block partial projections at x2
 
-    substep 1:  read x0, v0, p, w0            write w1, v1       (6 N)
-    substep 2:  read x0, v0, p, w0, w1, v1    write x2, v2, w2   (8 N)
+Kernel 2 recomputes the midpoint state (x1, v1, w1) from the step-start
+streams instead of reading it back: 11 N floats per step, the floor of the
+nonlinear delta-f RK2 step.  The update ordering is the reference's (x, then
+w with the analytic -f0'/f0, then v; src/pic1dp_interaction.F90:238-339).
 
-Linear mode freezes v (no v stream, no v1 recompute, no step-start gather
-in substep 2); full-f never updates w (no w streams at all).  The
-(2*nmode, 8, 128) VMEM tile of mode-projection partials is accumulated
-across the sequential grid (tile-wise vector adds in-kernel; the final
-cross-lane reduction to (2, nmode) scalars happens once, outside).  Dead
-markers carry p = w = 0 (core/state.py invariant), so no live mask is
-streamed.
+Each program handles one power-of-two block of one species' markers, with
+a mask on the tail, so the capacity needs no alignment.  Blocks run in any
+order: each writes its own (2 * nmode) partial sums, which XLA adds up
+outside the kernel together with the mode solve and the psum of a sharded
+run.  Species constants are selected by the block's species index.  Dead
+markers carry p = w = 0 (core/state.py), so no live mask is streamed.
 
-Static configuration (lx, nx, modes, dt, equilibrium) is baked into the
-kernel closure — ONE pallas_call per substep covering every species: the
-sequential grid walks all species' blocks back to back and resolves the
-per-species physics constants by a scalar select on the block's species
-index (baked floats when uniform — always for nspecies == 1).  One call for
-the whole (ns, N) state matters: per-species calls made XLA materialize
-each species' input slice and re-concatenate the outputs, an extra
-read+write of the entire state per substep (the fused layout measures
-ns=2 per-marker throughput at 1.03x of single-species — free — vs the
-2.7x stacked-carry penalty; docs/performance.md multi-species section,
-MULTISPECIES_r05.json).
-
-Particle blocks are (R, 128) tiles of the (ns*N/128, 128)-reshaped
-arrays; R is the largest divisor of N/128 up to `max_rows`.  R=256 is the
-v5e optimum at BOTH 2^24 and 2^26 markers (same-day sweep, docs/
-performance.md round 4: 1.67 ms/step at 2^24 and 6.99 ms at 2^26, vs
-1.72/7.59 at R=128 — R=128's loss grows with the grid count — and
-8.11 at R=512, 10.2 at R=64 at 2^26).
-Capacity N must be a multiple of 128 (pad nparticle_max; nparticle_init is
-unaffected).
+Static configuration (lx, nx, modes, dt, equilibrium, species) is baked into
+the kernel closure.  A Pallas kernel runs on the CPU only in interpret mode,
+and only when the caller asks for it with `interpret=True`.
 """
 
 from __future__ import annotations
@@ -62,22 +36,21 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-from pic1dp_tpu import distributions as dist
 from pic1dp_tpu.config import Config
+
+BLOCK = 1024     # markers per program (a power of two)
+NUM_WARPS = 4
 
 
 def _make_sel(sid, ns: int):
-    """Per-species constant selector for the species-fused kernel.
+    """Per-species constant selector.
 
-    `sid` is the block's species index (a traced scalar derived from
-    pl.program_id; None when ns == 1).  sel(vals) returns vals[sid]:
-    a plain python float whenever every species shares the value (always
-    true for ns == 1 — the expressions then compile bitwise-identically to
-    the old one-kernel-per-species layout), else a scalar select chain
-    (ns-1 scalar selects at trace level, negligible next to the particle
-    vector work)."""
+    `sid` is the species index of the block's markers (a traced vector;
+    None when ns == 1).  sel(vals) returns vals[sid]: a plain python float whenever
+    every species shares the value (always for ns == 1), else a chain of
+    ns - 1 scalar selects."""
     def sel(vals):
         vals = [float(v) for v in vals]
         if all(v == vals[0] for v in vals):
@@ -89,20 +62,10 @@ def _make_sel(sid, ns: int):
     return sel
 
 
-def _largest_divisor(n: int, limit: int, mult: int = 8) -> int:
-    """Largest divisor of n that is a multiple of `mult` (8 = f32 sublane
-    tile; 16 when any bf16 stream is present, the bf16 tile being (16, 128))
-    and <= limit; n itself must be a multiple of `mult`."""
-    for r in range(min(n, limit) // mult * mult, 0, -mult):
-        if n % r == 0:
-            return r
-    return mult
-
-
 def _fast_wrap(x, lx: float):
-    """Periodic wrap via x - lx*floor(x/lx) with a static reciprocal —
-    division-free (VPU divisions are ~8x slower than multiplies).  The
-    reciprocal rounding can land 1 ulp outside [0, lx); the selects fix it."""
+    """Periodic wrap via x - lx*floor(x/lx) with a static reciprocal.  The
+    reciprocal rounding can land 1 ulp outside [0, lx); the selects fix
+    it."""
     y = x - lx * jnp.floor(x * (1.0 / lx))
     return jnp.where(y >= lx, y - lx, jnp.where(y < 0.0, y + lx, y))
 
@@ -114,25 +77,22 @@ _EXP_CLAMP = 60.0
 
 
 def _minus_dlnf0_dv_fast(eq, cfg: Config, sel, v):
-    """distributions.minus_dlnf0_dv with species parameters algebraically
-    folded host-side and the two-Gaussian equilibria rewritten in
-    single-exponential ratio form:
+    """distributions.minus_dlnf0_dv with species parameters folded host-side
+    and the two-Gaussian equilibria rewritten in single-exponential ratio
+    form:
 
         (a e^A + b e^B) / (e^A + e^B)  =  (a + b r) / (1 + r),  r = e^(B-A)
 
-    — one transcendental per particle instead of two (transcendentals, not
-    HBM, bound the fused kernel).  Mathematically identical to the shared
-    distributions.py forms; bitwise-equal for MAXWELLIAN and TWO_STREAM1.
+    — one transcendental per marker instead of two.  Mathematically identical
+    to the distributions.py forms; bitwise-equal for MAXWELLIAN and
+    TWO_STREAM1.
 
-    Per-species parameters go through `sel` (_make_sel): python floats when
-    uniform across species (bitwise-identical compilation to baked
-    constants), scalar selects on the block's species index otherwise.
-    Degenerate bump-on-tail core fractions (density exactly 0 or 1) keep
-    their exact single-Maxwellian forms when EVERY species is degenerate
-    the same way; a mixed multi-species set instead clamps that species'
-    log_ratio to +-1e4, which the +-_EXP_CLAMP clip turns into
-    r = e^-+60 — a relative deviation < 1e-25, far below the 1e-12
-    equivalence pins."""
+    Per-species parameters go through `sel` (_make_sel).  Degenerate
+    bump-on-tail core fractions (density exactly 0 or 1) keep their exact
+    single-Maxwellian forms when EVERY species is degenerate the same way; a
+    mixed multi-species set instead clamps that species' log_ratio to
+    +-1e4, which the +-_EXP_CLAMP clip turns into r = e^-+60 — a relative
+    deviation < 1e-25, far below the 1e-12 equivalence pins."""
     from pic1dp_tpu.config import Equilibrium
 
     sps = cfg.species
@@ -182,208 +142,31 @@ def _minus_dlnf0_dv_fast(eq, cfg: Config, sel, v):
     raise ValueError(f"unknown equilibrium {eq}")
 
 
-# ---- bf16-pair packing: two bf16 values in one f32 word ----------------
-#
-# The bf16 `p` INPUT stream costs +30% kernel time on this Mosaic version
-# even though it carries half the bytes (docs/performance.md bisection — a
-# layout/pipelining pathology unreachable from Pallas).  The packed layout
-# sidesteps it: p lives in the TOP 16 bits and the intra-step midpoint
-# weight w1 in the BOTTOM 16 bits of ONE f32 stream, so Mosaic only ever
-# sees f32 tiles; the halves are split/joined with register bitcasts.
-# Quantization is round-to-nearest-even, bitwise identical to
-# .astype(bfloat16) (bf16 is exactly the top half of f32), so the packed
-# and separate-stream bf16 paths produce identical physics.
-# Stream budget per marker per step: 13 N f32 (plain) -> 12 N
-# (ss1: read x,v,w,pw write pw; ss2: read x,v,w,pw write x,v,w — every
-# write aliased over a dead input); +2 N when stream_v1 trades the v1
-# recompute's trig chain for a stream (14 N measures FASTER than 12 N on
-# v5e: 1.649 vs 1.851 ms/step at 2^24 — the kernels sit right at the
-# fused-elementwise bandwidth band, ~570 GB/s, so a trig chain costs more
-# than 2 N floats of DMA; bench/probe_alias.py).
-
-_HI_MASK = np.uint32(0xFFFF0000)
-
-
-def _pw_bits(pw):
-    return jax.lax.bitcast_convert_type(pw, jnp.uint32)
-
-
-def _unpack_hi(bits):
-    """Top-half bf16 (p) as f32 — upcast is exactly `bits & hi_mask`."""
-    return jax.lax.bitcast_convert_type(bits & _HI_MASK, jnp.float32)
-
-
-def _unpack_lo(bits):
-    """Bottom-half bf16 (w1) as f32."""
-    return jax.lax.bitcast_convert_type(bits << 16, jnp.float32)
-
-
-def _pack_lo(bits_hi, value_f32, dither=None):
-    """Keep the top half of `bits_hi`, round `value_f32` to bf16 into the
-    bottom half.  Default rounding is RTNE (identical to .astype(bfloat16)).
-    With `dither` (uint32 random bits, in-kernel pltpu PRNG) the rounding is
-    STOCHASTIC — truncate after adding U[0, 2^16) to the discarded mantissa
-    bits, unbiased with randomized residuals.  Tested against the
-    strongly-shifted two-species post-saturation divergence
-    (docs/performance.md round 5): decorrelating the residuals only DELAYS
-    the onset by ~2 time units — the instability is driven by the w1
-    perturbation MAGNITUDE, not the deterministic residual correlation —
-    so RTNE stays the default and the knob records the negative result."""
-    vb = jax.lax.bitcast_convert_type(value_f32, jnp.uint32)
-    if dither is not None:
-        vb = (vb + (dither & np.uint32(0xFFFF))) >> 16
-    else:
-        vb = (vb + np.uint32(0x7FFF) + ((vb >> 16) & np.uint32(1))) >> 16
-    return jax.lax.bitcast_convert_type((bits_hi & _HI_MASK) | vb,
-                                        jnp.float32)
-
-
-def pack_pw(p, w1=None):
-    """Host/XLA-side pack: (ns, n) p (any float dtype) + optional w1 ->
-    one f32 array with p in the top halves.  Used to enter the packed
-    multi-step carry; p is quantized to bf16 exactly once."""
-    pw = p.astype(jnp.bfloat16).astype(jnp.float32)
-    if w1 is not None:
-        return _pack_lo(_pw_bits(pw), w1.astype(jnp.float32))
-    return pw
-
-
-# Degree-5 (in f^2) quadrant polynomials for cos/sin(pi/2 f), f in [0, 1):
-# near-minimax Chebyshev fits, max abs error 6.8e-10 / 8.3e-11 — below one
-# f32 ulp, so on the f32 hot path they are as accurate as jnp.cos/sin while
-# costing ~20 pipelined VPU mul-adds for BOTH values.  Mosaic lowers
-# jnp.cos/sin to a generic range-reduced polynomial that measures ~15-25x
-# more expensive per pair and dominates the whole substep (measured: one
-# cos+sin pair ~2-3 ms per 2^26 markers on v5e; the entire 7-stream substep
-# without trig is ~4.5 ms).  Our angles are 2*pi*(m*ix0/nx mod 1) with ix0
-# integer, so the quadrant reduction here is exact arithmetic, not the
-# general Payne-Hanek problem.
-_COS_COEF = (0.9999999998457041, -1.233700538086706, 0.25366935703321725,
-             -0.02086279512890428, 0.0009178587297690476,
-             -2.3883072106543594e-05)
-_SIN_COEF = (1.5707963267761484, -0.6459640960423054, 0.07969260792044065,
-             -0.004681670879540178, 0.00016027109114375508,
-             -3.4389484786593153e-06)
-
-
-def _sincos_turns(t):
-    """(cos, sin) of 2*pi*t for t in [0, 1)."""
-    z = 4.0 * t
-    q = jnp.floor(z)
-    f = z - q
-    y = f * f
-    c = _COS_COEF[5]
-    for k in (4, 3, 2, 1, 0):
-        c = c * y + _COS_COEF[k]
-    s = _SIN_COEF[5]
-    for k in (4, 3, 2, 1, 0):
-        s = s * y + _SIN_COEF[k]
-    s = s * f
-    odd = (q - 2.0 * jnp.floor(0.5 * q)) == 1.0   # q in {1, 3}
-    one = jnp.ones((), t.dtype)
-    base_c = jnp.where(odd, s, c)
-    base_s = jnp.where(odd, c, s)
-    sign_c = jnp.where((q == 1.0) | (q == 2.0), -one, one)
-    sign_s = jnp.where(q >= 2.0, -one, one)
-    return (sign_c * base_c).astype(t.dtype), (sign_s * base_s).astype(t.dtype)
-
-
-def _sincos_turns_raw(tm):
-    """(cos, sin) of 2*pi*tm for ANY tm >= 0 — fused range reduction +
-    quadrant evaluation, ~25% fewer VPU ops than the mod-then-_sincos_turns
-    chain (the production kernels are VPU-bound on exactly these chains,
-    bench/probe_compute.py):
-
-        r = tm - floor(tm + 1/2)   in [-1/2, 1/2)   (one floor does the mod
-                                                     AND centers the range)
-        v = |r|; reflect v > 1/4 to w = 1/2 - v      (cos odd-symmetry about
-                                                      the quarter turn)
-        cos = +-Pc((4w)^2), sin = sign(r) * Ps-form  (same quadrant
-                                                      polynomials, no
-                                                      base-swap selects)
-
-    The reduction is exact arithmetic for the hot-loop angles (tm = m*ix0/nx
-    with integer ix0, product below 2^24) — same guarantee as the original
-    chain.  Quadrants 1/2 evaluate the reflected-argument polynomial of the
-    SAME function instead of the co-function swap, so individual values may
-    differ from _sincos_turns by ~1 ulp; the max absolute error bound
-    (<1 f32 ulp vs exact) is unchanged — pinned by
-    tests/test_spectral_path.py::test_sincos_turns_raw_accuracy."""
-    r = tm - jnp.floor(tm + 0.5)
-    v = jnp.abs(r)
-    hi = v > 0.25
-    w = jnp.where(hi, 0.5 - v, v)
-    f = 4.0 * w
-    y = f * f
-    c = _COS_COEF[5]
-    for k in (4, 3, 2, 1, 0):
-        c = c * y + _COS_COEF[k]
-    s = _SIN_COEF[5]
-    for k in (4, 3, 2, 1, 0):
-        s = s * y + _SIN_COEF[k]
-    s = s * f
-    cos = jnp.where(hi, -c, c)
-    sin = jnp.where(r < 0.0, -s, s)
-    return cos.astype(tm.dtype), sin.astype(tm.dtype)
-
-
-def _trig_block(x, lx, nx: int, modes, dtype):
-    """mode_trig specialized for in-kernel blocks (same math as
-    ops/spectral.mode_trig), returning the HAT-INTERPOLATED (C_m, S_m) pair
-    per kept mode — the only trig quantities the kernel ever uses (E gather:
-    C*mre - S*mim; deposit projections: val*C, val*S):
+def _hat_trig(x, lx: float, nx: int, modes, cos_ref, sin_ref):
+    """Hat-interpolated (C_m, S_m) per kept mode at positions x — the only
+    trig quantities the kernels use (E gather: C*mre - S*mim; deposit
+    projections: val*C, val*S):
 
         C = w0 cos(th0) + w1 cos(th1) = c0 (1 + w1 (cd - 1)) - s0 (w1 sd)
 
-    folding the hat weights into the neighbor-cell angle-add (cd - 1 is
-    precomputed in f64 — better conditioned than cd for small cell angles —
-    and the fold saves 2 VPU ops per mode vs separate c1/s1 + weights; the
-    kernels are VPU-bound).  f32 uses the quadrant polynomials above — one
-    evaluation for the base angle, then the angle-addition recurrence walks
-    up to each kept mode (~6 mul-adds per unit of mode number instead of a
-    full ~25-op polynomial pair; error grows ~3e-7 per unit, so modes above
-    8 fall back to a direct evaluation).  f64 (CPU interpret mode,
-    equivalence tests) keeps exact jnp.cos/sin so the 1e-12 pins against the
-    XLA spectral path hold bitwise-tight."""
-    import os
-
+    with th0 = 2 pi m ix0 / nx the integer grid angle of the left
+    neighbour.  c0 and s0 are gathered from the (nx,) cos/sin tables of
+    the grid angles at (m * ix0) mod nx: a few KB that stay in L1, faster
+    on the H100 than libdevice sinf/cosf and than a quadrant polynomial
+    (PERF.md, H100 bring-up)."""
+    dtype = x.dtype
     s = x * (nx / lx)
     ix0 = jnp.floor(s)
-    frac = s - ix0
-    # upper guard only: in-kernel x is always wrapped into [0, lx) (loader +
-    # _fast_wrap), so s >= 0; the guard catches the half-ulp case where
-    # x just below lx rounds s up to exactly nx
-    ix0 = jnp.minimum(ix0, float(nx - 1))
-    w1 = frac
-    fast = dtype == jnp.float32
-    # PIC1DP_TRIG=1 reverts to the two-floor mod+quadrant chain for A/B runs
-    raw = os.environ.get("PIC1DP_TRIG", "2") == "2"
-
-    def direct(m):
-        if fast:
-            tm = ix0 * np.float32(m / nx)     # m*ix0 exact below 2^24
-            if raw:
-                return _sincos_turns_raw(tm)  # fused mod+quadrant, ~25% off
-            t = tm - jnp.floor(tm)            # mod 1: exact
-            return _sincos_turns(t)
-        theta0 = ix0 * jnp.asarray(2.0 * np.pi * m / nx, dtype)
-        return jnp.cos(theta0), jnp.sin(theta0)
-
-    trig_m = {}
-    if fast and len(modes) > 1 and max(modes) <= 8:
-        cb, sb = direct(1)
-        c, s_, j = cb, sb, 1
-        while j < max(modes):
-            if j in modes:
-                trig_m[j] = (c, s_)
-            c, s_ = c * cb - s_ * sb, s_ * cb + c * sb
-            j += 1
-        trig_m[j] = (c, s_)
-
+    w1 = s - ix0
+    # x is wrapped into [0, lx), so s >= 0; the guard catches the half-ulp
+    # case where x just below lx rounds s up to exactly nx
+    ix0 = jnp.minimum(ix0, float(nx - 1)).astype(jnp.int32)
     out = []
     for m in modes:
+        j = (ix0 * np.int32(m)) % np.int32(nx)
+        c0 = plgpu.load(cos_ref.at[j])
+        s0 = plgpu.load(sin_ref.at[j])
         step = 2.0 * np.pi * m / nx
-        c0, s0 = trig_m[m] if m in trig_m else direct(m)
         cdm1 = np.asarray(np.cos(step) - 1.0, dtype)  # typed: np.float64
         sd = np.asarray(np.sin(step), dtype)          # scalars would promote
         a = 1.0 + w1 * cdm1
@@ -393,431 +176,202 @@ def _trig_block(x, lx, nx: int, modes, dtype):
 
 
 def make_substep_call(cfg: Config, substep: int, n: int, *,
-                      max_rows: int = 128, interpret: bool = False,
-                      axis_name: str | None = None, packed: bool = False,
-                      stream_v1: bool = False):
-    """Build the fused substep kernel for ALL species in one pallas_call.
+                      interpret: bool = False, axis_name: str | None = None):
+    """Build one fused substep kernel for all species.
 
-    Particle arrays are the full (ns, n) state (n = per-species, per-shard
-    length); the kernel runs one sequential grid over every species' blocks
-    back to back — block b belongs to species b // (blocks per species),
-    and the per-species physics constants are scalar selects on that index
-    (plain baked floats when uniform, in particular whenever ns == 1, so
-    the single-species compilation is unchanged).  One call for the whole
-    state is load-bearing for multi-species perf: per-species calls forced
-    XLA to materialize each species' slice before the call and concatenate
-    the outputs after it — an extra read+write of the entire state per
-    substep; the fused layout measures ns=2 at 1.03x single-species
-    per-marker throughput (docs/performance.md multi-species section,
-    MULTISPECIES_r05.json).
+    Particle arrays are the (ns, n) state (n = per-species, per-shard
+    length).  Returns fn:
 
-    substep 1:  fn(x0, v0, p, w0, mode_re0, mode_im0)
-                  -> ([w1,] proj1)             projections of the dt/2 push
-    substep 2:  fn(x0, v0, p, w0, [w1,] *mode_scalars)
-                  -> (x2, [v2,] [w2,] proj2)   full-dt push from the backups
+        substep 1:  fn(x0, v0, p, w0, mre0, mim0) -> proj1
+        substep 2:  fn(x0, v0, p, w0, mre0, mim0, mre1, mim1)
+                      -> (x2, v2, w2, proj2)
 
-    substep 2's mode_scalars are (mode_re0, mode_im0, mode_re1, mode_im1)
-    when v is live (it re-derives x1 and v1 in-register from the step-start
-    field, bitwise identical to substep 1 — same shared code) and just
-    (mode_re1, mode_im1) in linear mode (v frozen, no step-start gather
-    needed).  w streams exist only when cfg.deltaf; the v stream only when
-    not cfg.linear (reference semantics: linear freezes v, full-f never
-    updates w).  proj is the (2, nmode) raw mode projections of the species'
-    charge-weighted deposit at the pushed positions (spectral.project_modes
-    semantics), already summed over species.
-
-    `packed=True` (bf16_weights fast path, delta-f f32 only): the p slot
-    carries the packed p||w1 f32 stream (see pack_pw above) instead of
-    separate p / w1 streams —
-        substep 1:  fn(x0, v0, pw, w0, mode_re0, mode_im0) -> (pw', proj1)
-                    (pw' = same p halves, fresh bf16 w1 halves; ALIASED
-                    over pw, which dies here)
-        substep 2:  fn(x0, v0, pw', w0, *mode_scalars) -> (x2, v2, w2, proj2)
-    12 N stream-floats per step, every write in-place, all tiles f32.
-
-    `stream_v1=True` (nonlinear delta-f only): substep 1 additionally
-    writes the midpoint velocities v1 (bitwise the same value substep 2
-    would recompute) and substep 2 reads them instead of re-deriving them —
-    trades +2 N stream-floats for dropping substep 2's step-start trig
-    gather chain (the kernels are VPU-bound, not DMA-bound, once the
-    in-place aliasing is on; measured on v5e).  Substep 2 then takes only
-    (mode_re1, mode_im1).
-    """
-    if n % 1024:
-        raise ValueError(
-            f"pallas hot path needs nparticle_max % 1024 == 0, got {n} "
-            "(round the capacity up; nparticle_init may stay as is)")
+    proj is the (2, nmode) raw mode projections (spectral.project_modes
+    semantics: row 0 cos, row 1 sin) of the charge-weighted deposit at the
+    pushed positions, summed over species.  Frozen streams (v in linear
+    mode, w in full-f) are returned as given.  With cfg.bf16_weights the
+    midpoint weights w1 are rounded to bfloat16 before the substep-2 drive,
+    exactly as the XLA step does; the midpoint projections use the
+    full-precision w1."""
     if substep not in (1, 2):
         raise ValueError(f"substep must be 1 or 2, got {substep}")
     dtype = jnp.dtype(cfg.dtype)
-    # cfg.bf16_weights: p is stored and w1 streamed at `aux` (bfloat16);
-    # all in-kernel arithmetic stays at `dtype` (f32) via register upcasts
-    aux = jnp.dtype(cfg.p_dtype)
-    reduced = aux != dtype
-    if reduced and n % 2048:
-        raise ValueError(
-            f"bf16_weights pallas path needs the per-device particle "
-            f"capacity % 2048 == 0 (bf16 tile is (16, 128)), got {n}")
-    if packed and not (reduced and cfg.deltaf and dtype == jnp.float32):
-        raise ValueError("packed kernels require bf16_weights delta-f f32")
-    # perf-bisection knob: PIC1DP_BF16_STREAMS selects which of the reduced
-    # streams actually run at bf16 ("p", "w1", "p,w1" (default), or "" for
-    # none); lets on-chip experiments isolate per-stream Mosaic costs
-    # without touching the config surface
-    import os
-
-    _sel = os.environ.get("PIC1DP_BF16_STREAMS")
-    if reduced and _sel is not None and not packed:
-        _names = set(filter(None, _sel.split(",")))
-        p_sd = aux if "p" in _names else dtype
-        w1_sd = aux if "w1" in _names else dtype
-    else:
-        p_sd = w1_sd = aux
-    # PIC1DP_W1_SR=1 (packed layout only): stochastically round the w1
-    # stream with in-kernel PRNG dither instead of RTNE.  Measured against
-    # the strongly-shifted two-species post-saturation divergence: onset
-    # delayed ~2 time units only (the instability responds to the w1
-    # perturbation magnitude, not the residual correlation) — default off,
-    # kept as the recorded experiment (docs/performance.md round 5).
-    w1_sr = packed and bool(int(os.environ.get("PIC1DP_W1_SR", "0")))
+    quantize_w1 = cfg.bf16_weights
     ns = cfg.nspecies
-    nrows = n // 128           # rows per species
-    rows = _largest_divisor(nrows, max_rows,
-                            16 if (reduced and not packed) else 8)
-    nblocks = nrows // rows    # blocks per species: grid runs ns * nblocks
-    nrows_total = ns * nrows
+    nb = pl.cdiv(n, BLOCK)
     nmode = len(cfg.modes)
+    lx, nx, modes = cfg.lx, cfg.nx, cfg.modes
     vma = frozenset() if axis_name is None else frozenset({axis_name})
     dt_half = 0.5 * cfg.dt
-    # per-species physics constants (selected per block inside the kernel;
-    # plain floats whenever uniform across species)
     charges = [sp.charge for sp in cfg.species]
-    # evaluation order matches the old per-species closure's
-    # `dt_eff * (charge / mass)` exactly (python-float bitwise identity)
     dtqm_half_l = [dt_half * (sp.charge / sp.mass) for sp in cfg.species]
     dtqm_full_l = [cfg.dt * (sp.charge / sp.mass) for sp in cfg.species]
     has_v = not cfg.linear     # v stream updated
     has_w = cfg.deltaf         # w stream updated
-    if stream_v1 and not (has_v and has_w):
-        raise ValueError("stream_v1 requires the nonlinear delta-f layout")
-    n_scal = 2 if substep == 1 else (4 if (has_v and not stream_v1) else 2)
-    extra2 = ((0 if (packed or not has_w) else 1)
-              + (1 if stream_v1 else 0))
-    n_pin = 4 if substep == 1 else 4 + extra2
-    n_out = (((1 if has_w else 0) + (1 if stream_v1 else 0)) if substep == 1
-             else 1 + (1 if has_v else 0) + (1 if has_w else 0))
-
-    def gather_e(x_at, mre_ref, mim_ref):
-        """Kept-mode E from the hat-interpolated (C, S) at x_at."""
-        cs = _trig_block(x_at, cfg.lx, cfg.nx, cfg.modes, dtype)
-        e = None
-        for i, (c_m, s_m) in enumerate(cs):
-            term = c_m * mre_ref[0, i] - s_m * mim_ref[0, i]
-            e = term if e is None else e + term
-        return 2.0 * e
-
-    def push(sel, x0, v0, p, w0, v_at, w_at, e_p, dt_eff, dtqm):
-        """Reference update ordering x, w, v from the step-start backups with
-        midpoint fields/velocities (src/pic1dp_interaction.F90:238-339).
-        `dtqm` is the per-species dt_eff * q/m select (dtqm_half_l /
-        dtqm_full_l through `sel`)."""
-        x_new = _fast_wrap(x0 + dt_eff * v_at, cfg.lx)
-        if has_w:
-            drive = (p * e_p) if cfg.linear else ((p - w_at) * e_p)
-            kern = _minus_dlnf0_dv_fast(cfg.equilibrium, cfg, sel, v_at)
-            w_new = w0 + dtqm * drive * kern
-        else:
-            w_new = w0
-        v_new = v0 + dtqm * e_p if has_v else v0
-        return x_new, v_new, w_new
+    n_modes_in = 2 if substep == 1 else 4
+    n_out = 0 if substep == 1 else 1 + has_v + has_w
 
     def kernel(*refs):
-        in_refs, out_refs = refs[:n_pin + n_scal], refs[n_pin + n_scal:]
-        x_ref, v_ref, p_ref, w_ref, *rest = in_refs
-        scal = rest[-n_scal:]
-        w1_ref = rest[0] if (substep == 2 and has_w and not packed) else None
-        v1_ref = rest[-n_scal - 1] if (substep == 2 and stream_v1) else None
-        proj_ref = out_refs[-1]
-        # species of this block (sequential grid: species laid out back to
-        # back, nblocks blocks each); None -> every select is a baked float
-        sid = (pl.program_id(0) // nblocks) if ns > 1 else None
-        sel = _make_sel(sid, ns)
+        x_ref, v_ref, p_ref, w_ref = refs[:4]
+        scal = refs[4:4 + n_modes_in]
+        cos_ref, sin_ref = refs[4 + n_modes_in:6 + n_modes_in]
+        out_refs = refs[len(refs) - n_out - 1:len(refs) - 1]
+        proj_ref = refs[-1]
+        pid = pl.program_id(0)
+        sid = pid // nb if ns > 1 else None
+        loc = (pid % nb) * BLOCK + jnp.arange(BLOCK, dtype=jnp.int32)
+        mask = loc < n
+        off = loc if ns == 1 else sid * n + loc
+        # species selects act on a per-marker vector of the species index:
+        # Triton lowers a select with a scalar predicate incorrectly
+        sel = _make_sel(None if ns == 1 else off // n, ns)
+
+        def load(ref):
+            return plgpu.load(ref.at[off], mask=mask, other=0.0).astype(dtype)
+
+        def hat_trig(x):
+            return _hat_trig(x, lx, nx, modes, cos_ref, sin_ref)
+
+        def gather_e(cs, mre_ref, mim_ref):
+            e = None
+            for i, (c_m, s_m) in enumerate(cs):
+                term = c_m * mre_ref[i] - s_m * mim_ref[i]
+                e = term if e is None else e + term
+            return 2.0 * e
+
+        def kern(v):
+            return _minus_dlnf0_dv_fast(cfg.equilibrium, cfg, sel, v)
+
+        x0, v0, p, w0 = load(x_ref), load(v_ref), load(p_ref), load(w_ref)
         dtqm_h = sel(dtqm_half_l)
-        dtqm_f = sel(dtqm_full_l)
-        deposit_scale = sel(charges)  # val = charge * (w' | p)
-
-        x0 = x_ref[:]
-        v0 = v_ref[:]
-        if packed:
-            pw_bits = _pw_bits(p_ref[:])   # p||w1 halves, split in-register
-            p = _unpack_hi(pw_bits)
+        # substep 1 (both kernels): half push from the step-start field.
+        # Kernel 1 needs the field at x0 only for w1; kernel 2 for v1 and,
+        # when nonlinear, for the w1 in its drive term
+        need_w1 = has_w and (substep == 1 or not cfg.linear)
+        need_e0 = need_w1 or (substep == 2 and has_v)
+        x1 = _fast_wrap(x0 + dt_half * v0, lx)
+        e0 = gather_e(hat_trig(x0), scal[0], scal[1]) if need_e0 else None
+        if need_w1:
+            drive0 = (p * e0) if cfg.linear else ((p - w0) * e0)
+            w1 = w0 + dtqm_h * drive0 * kern(v0)
         else:
-            p = p_ref[:].astype(dtype)   # upcast the (possibly bf16) p stream
-        w0 = w_ref[:]
-
+            w1 = w0
         if substep == 1:
-            # half push from the step-start field
-            e_p0 = gather_e(x0, scal[0], scal[1])
-            x_new, v_new, w_new = push(sel, x0, v0, p, w0, v0, w0, e_p0,
-                                       dt_half, dtqm_h)
-            oi = 0
-            if has_w:
-                # w1 is an intra-step stream (consumed only by substep 2's
-                # drive term), quantized to the stream dtype on store; the
-                # midpoint projections below use the full-precision w_new
-                if packed and w1_sr:
-                    # per-(step, block) seed: the mode scalars change
-                    # chaotically every step, so their scaled integer
-                    # conversions decorrelate the dither across steps
-                    # (scalar bitcast is not lowerable on Mosaic);
-                    # program_id varies it across blocks
-                    pltpu.prng_seed(
-                        (scal[0][0, 0] * np.float32(1.37e7))
-                        .astype(jnp.int32),
-                        (scal[1][0, 0] * np.float32(2.71e7))
-                        .astype(jnp.int32)
-                        + pl.program_id(0) * np.int32(65537))
-                    rbits = pltpu.prng_random_bits(w_new.shape)
-                    out_refs[oi][:] = _pack_lo(
-                        pw_bits, w_new, dither=rbits.astype(jnp.uint32))
-                elif packed:
-                    out_refs[oi][:] = _pack_lo(pw_bits, w_new)
-                else:
-                    out_refs[oi][:] = w_new.astype(out_refs[oi].dtype)
-                oi += 1
-            if stream_v1:
-                # v_new here IS substep 2's v1 (same expression, same
-                # inputs, same baked dt_half * q/m constant)
-                out_refs[oi][:] = v_new
+            x_new, val_w = x1, w1
         else:
-            # derive the midpoint positions/velocities: x1 is recomputed
-            # in-register; v1 is either streamed in (stream_v1 — drops the
-            # whole step-start trig gather below) or recomputed bitwise-
-            # identically to substep 1 from the step-start mode scalars.
-            # The weights w1 are always streamed — their recompute would
-            # need the -f0'/f0 chain on top
-            if stream_v1:
-                v1 = v1_ref[:]
-            elif has_v:
-                e_p0 = gather_e(x0, scal[0], scal[1])
-                v1 = v0 + dtqm_h * e_p0
-            else:
-                v1 = v0
-            x1 = _fast_wrap(x0 + dt_half * v0, cfg.lx)
-            if packed:
-                w1 = _unpack_lo(pw_bits)
-            else:
-                w1 = w1_ref[:].astype(dtype) if has_w else w0
-            e_p1 = gather_e(x1, scal[-2], scal[-1])
-            x_new, v_new, w_new = push(sel, x0, v0, p, w0, v1, w1, e_p1,
-                                       cfg.dt, dtqm_f)
-            out_i = 0
-            out_refs[out_i][:] = x_new
-            out_i += 1
-            if has_v:
-                out_refs[out_i][:] = v_new
-                out_i += 1
+            cs1 = hat_trig(x1)
+            e1 = gather_e(cs1, scal[2], scal[3])
+            if quantize_w1 and has_w and not cfg.linear:
+                w1 = w1.astype(jnp.bfloat16).astype(dtype)
+            dtqm_f = sel(dtqm_full_l)
+            v1 = v0 + dtqm_h * e0 if has_v else v0
+            x_new = _fast_wrap(x0 + cfg.dt * v1, lx)
             if has_w:
-                out_refs[out_i][:] = w_new
-                out_i += 1
+                drive1 = (p * e1) if cfg.linear else ((p - w1) * e1)
+                val_w = w0 + dtqm_f * drive1 * kern(v1)
+            else:
+                val_w = w0
+            outs = [x_new] + ([v0 + dtqm_f * e1] if has_v else []) \
+                + ([val_w] if has_w else [])
+            for ref, o in zip(out_refs, outs):
+                plgpu.store(ref.at[off], o.astype(ref.dtype), mask=mask)
+        val = (val_w if cfg.deltaf else p) * sel(charges)
+        val = jnp.where(mask, val, 0.0)
+        for i, (c_m, s_m) in enumerate(hat_trig(x_new)):
+            plgpu.store(proj_ref.at[pid, np.int32(i)], jnp.sum(val * c_m))
+            plgpu.store(proj_ref.at[pid, np.int32(nmode + i)],
+                        jnp.sum(val * s_m))
 
-        # -- deposit: accumulate raw mode projections of the new positions.
-        # Cross-lane scalar reductions per block are slow on the VPU, so the
-        # kernel only folds row-tiles ((rows,128) -> (8,128), pure vector
-        # adds) into a VMEM accumulator; the final (8,128) -> scalar
-        # reduction happens once, outside the kernel. --
-        val = (w_new if cfg.deltaf else p) * deposit_scale
-        csd = _trig_block(x_new, cfg.lx, cfg.nx, cfg.modes, dtype)
-
-        @pl.when(pl.program_id(0) == 0)
-        def _():
-            proj_ref[:] = jnp.zeros_like(proj_ref)
-
-        r = val.shape[0]
-        for i, (c_m, s_m) in enumerate(csd):
-            part_c = jnp.sum((val * c_m)
-                             .reshape(r // 8, 8, 128), axis=0)
-            part_s = jnp.sum((val * s_m)
-                             .reshape(r // 8, 8, 128), axis=0)
-            proj_ref[2 * i] += part_c
-            proj_ref[2 * i + 1] += part_s
-
-    pblock = pl.BlockSpec((rows, 128), lambda b: (b, 0),
-                          memory_space=pltpu.VMEM)
-    mblock = pl.BlockSpec((1, nmode), lambda b: (0, 0),
-                          memory_space=pltpu.SMEM)
-    # per-stream dtypes: substep 1's particle outputs are the w1 stream
-    # (the full packed word in packed mode) and, under stream_v1, the f32
-    # midpoint velocities; substep 2's outputs (persistent state) stay
-    # full precision
-    if substep == 1:
-        out_dtypes = ([dtype if packed else w1_sd] if has_w else []) \
-            + ([dtype] if stream_v1 else [])
-    else:
-        out_dtypes = [dtype] * n_out
-    in_dtypes = [dtype, dtype, dtype if packed else p_sd, dtype] \
-        + ([w1_sd] if (substep == 2 and has_w and not packed) else []) \
-        + ([dtype] if (substep == 2 and stream_v1) else [])
-    grid_spec = pl.GridSpec(
-        grid=(ns * nblocks,),
-        in_specs=[pblock] * n_pin + [mblock] * n_scal,
-        out_specs=tuple([pblock] * n_out
-                        + [pl.BlockSpec((2 * nmode, 8, 128), lambda b: (0, 0, 0),
-                                        memory_space=pltpu.VMEM)]),
-    )
-    # in-place state update: substep 2 writes x2/v2/w2 over the x0/v0/w0
-    # input buffers (same shape/dtype, block i written only after read).
-    # Saves HBM allocations and lets the DMA engine reuse just-read pages;
-    # PIC1DP_PALLAS_ALIAS=0 disables for A/B experiments.
-    # (substep 1 is NOT aliased on the separate-stream layout: its only
-    # particle output w1 would clobber w0, which substep 2 still reads —
-    # XLA would copy, negating the gain.  The PACKED layout aliases substep
-    # 1 too: pw' overwrites pw, whose old value nothing reads again.)
+    out_shape = [jax.ShapeDtypeStruct((ns * n,), dtype, vma=vma)] * n_out \
+        + [jax.ShapeDtypeStruct((ns * nb, 2 * nmode), dtype, vma=vma)]
+    # kernel 2 writes x2/v2/w2 over x0/v0/w0: each block reads its markers
+    # before it writes them, and nothing reads the step-start state later
+    # (in place measured 1.45x faster than fresh outputs, PERF.md)
     aliases = {}
-    if int(os.environ.get("PIC1DP_PALLAS_ALIAS", "1")):
-        if substep == 2:
-            aliases[0] = 0                     # x0 -> x2
-            if has_v:
-                aliases[1] = 1                 # v0 -> v2
-            if has_w:
-                aliases[3] = (2 if has_v else 1)   # w0 -> w2
-        elif packed:
-            aliases[2] = 0                     # pw -> pw'
+    if substep == 2:
+        aliases = {0: 0}
+        if has_v:
+            aliases[1] = 1
+        if has_w:
+            aliases[3] = 1 + has_v
     call = pl.pallas_call(
         kernel,
+        grid=(ns * nb,),
+        out_shape=tuple(out_shape),
         input_output_aliases=aliases,
-        grid_spec=grid_spec,
-        # under shard_map every output varies across the particle mesh axis
-        # (the proj partials are psum'd by the caller)
-        out_shape=tuple([jax.ShapeDtypeStruct((nrows_total, 128), d, vma=vma)
-                         for d in out_dtypes]
-                        + [jax.ShapeDtypeStruct((2 * nmode, 8, 128), dtype,
-                                                vma=vma)]),
         interpret=interpret,
-        cost_estimate=pl.CostEstimate(
-            flops=ns * n * (30 + 30 * nmode) * substep,
-            bytes_accessed=ns * n * sum(d.itemsize
-                                        for d in in_dtypes + out_dtypes)
-            + ns * n * dtype.itemsize,  # projection accumulator tile traffic
-            transcendentals=ns * n * (2 * nmode + 1) * substep,
-        ),
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS,
+                                             num_stages=1),
+        name=f"pic1dp_substep{substep}",
     )
+    ang = 2.0 * np.pi * np.arange(nx) / nx
+    tables = (np.cos(ang).astype(dtype), np.sin(ang).astype(dtype))
 
     def fn(*arrays):
-        """arrays: the particle streams — (ns, n) or flat (ns*n,) — plus
-        flat mode scalars -> outputs in the INPUT shape + the (2, nmode)
-        projections summed over species.
-
-        Flat (ns*n,) is the fast multi-species carry: a logical (ns, n)
-        array on TPU is tiled over its last TWO dims, so ns = 2 pads the
-        sublane dim 2 -> 8 and every reshape to the kernel's
-        (nrows_total, 128) blocking is a physical relayout (~3x the step's
-        own stream time, measured in docs/performance.md round 4); from a
-        flat buffer the same reshape is layout-free.  make_multi_step
-        flattens the scan carry once per dispatch."""
-        particle, modes_flat = arrays[:n_pin], arrays[n_pin:]
-        in_shape = particle[0].shape
-        # coerce each stream to its declared dtype (no-op in production;
-        # the PIC1DP_BF16_STREAMS bisection knob may widen p / w1)
-        particle = [a.astype(d) for a, d in zip(particle, in_dtypes)]
-        blocked = [a.reshape(nrows_total, 128) for a in particle]
-        scal = [m.reshape(1, nmode).astype(dtype) for m in modes_flat]
-        *pouts, proj3 = call(*blocked, *scal)
-        sums = jnp.sum(proj3, axis=(1, 2))          # (2*nmode,)
-        proj = jnp.stack([sums[0::2], sums[1::2]])  # (2, nmode): cos; sin
-        return tuple(o.reshape(in_shape) for o in pouts) + (proj,)
+        particle, mode_scal = arrays[:4], arrays[4:]
+        shape = particle[0].shape
+        flat = [a.reshape(-1) for a in particle]
+        scal = [m.astype(dtype) for m in mode_scal]
+        tabs = [jnp.asarray(t) for t in tables]
+        if axis_name is not None:
+            # replicated inputs -> varying, so every kernel input carries
+            # the same manual-axes set under shard_map
+            scal = [jax.lax.pcast(m, axis_name, to="varying") for m in scal]
+            tabs = [jax.lax.pcast(t, axis_name, to="varying") for t in tabs]
+        *pouts, part = call(*flat, *scal, *tabs)
+        proj = jnp.sum(part, axis=0).reshape(2, nmode)
+        if substep == 1:
+            return proj
+        pouts = iter(o.reshape(shape) for o in pouts)
+        x2 = next(pouts)
+        v2 = next(pouts) if has_v else particle[1]
+        w2 = next(pouts) if has_w else particle[3]
+        return x2, v2, w2, proj
 
     return fn
 
 
 class FusedStepper:
-    """Per-config factory of the fused substep callables (both substeps,
-    every species), used by core.step.Stepper when the resolved deposit
-    method is PALLAS.  Kernels are built lazily per particle-array length:
-    under shard_map the per-device shard length (nparticle_max / mesh size)
-    is what reaches the kernel, not the global capacity."""
+    """Per-config factory of the two fused substep callables, used by
+    core.step.Stepper when the deposit method is PALLAS.  Kernels are built
+    lazily per particle-array length: under shard_map the per-device shard
+    length is what reaches the kernel, not the global capacity.
 
-    def __init__(self, cfg: Config, interpret: bool | None = None,
-                 axis_name: str | None = None, max_rows: int = 128,
-                 packed: bool = False, stream_v1: bool = False):
-        if interpret is None:
-            interpret = jax.default_backend() != "tpu"
+    The kernels compile for a GPU through Triton.  On any other backend they
+    run only in the Pallas interpreter, and only if `interpret=True`."""
+
+    def __init__(self, cfg: Config, interpret: bool = False,
+                 axis_name: str | None = None):
+        if not interpret and jax.default_backend() != "gpu":
+            raise ValueError(
+                "the fused Pallas step compiles only for a GPU (Triton); "
+                f"this backend is {jax.default_backend()!r}. Pass "
+                "interpret=True to run it in the Pallas interpreter, or use "
+                "the XLA step (deposit_method AUTO).")
         self.cfg = cfg
         self.interpret = interpret
         self.axis_name = axis_name
-        self.max_rows = max_rows
-        self.has_v = not cfg.linear
-        self.has_w = cfg.deltaf
-        # packed p||w1 layout (see pack_pw): the p argument of both substeps
-        # carries the packed f32 stream; substep 1 returns the refreshed
-        # stream in the w1 slot; substep 2 takes it in the p slot (w1=None)
-        self.packed = packed
-        # stream_v1: substep 1 also writes the midpoint velocities, substep
-        # 2 reads them instead of recomputing (VPU-bound tradeoff, see
-        # make_substep_call); only defined for the nonlinear delta-f layout
-        self.stream_v1 = stream_v1 and self.has_v and self.has_w
         self._subs: dict = {}
 
     def _sub(self, substep: int, n: int):
         key = (substep, n)
         if key not in self._subs:
             self._subs[key] = make_substep_call(
-                self.cfg, substep, n, max_rows=self.max_rows,
-                interpret=self.interpret, axis_name=self.axis_name,
-                packed=self.packed, stream_v1=self.stream_v1)
+                self.cfg, substep, n, interpret=self.interpret,
+                axis_name=self.axis_name)
         return self._subs[key]
 
     def substep1(self, x, v, p, w, mode_re, mode_im):
-        """(ns, N) step-start arrays + step-start mode scalars
-        -> (w1, v1, (p_c, p_s)): the streamed midpoint weights (= w when w
-        is frozen; the refreshed packed p||w1 stream in packed mode), the
-        streamed midpoint velocities (None unless stream_v1), and the raw
-        midpoint-deposit projections summed over species."""
-        *pouts, proj = self._run(1, (x, v, p, w), (mode_re, mode_im))
-        i = 0
-        w1 = w
-        if self.has_w:
-            w1 = pouts[i]
-            i += 1
-        v1 = pouts[i] if self.stream_v1 else None
-        return w1, v1, (proj[0], proj[1])
+        """(ns, N) step-start state + step-start modes -> (p_c, p_s), the
+        raw projections of the midpoint deposit."""
+        proj = self._sub(1, x.shape[-1])(x, v, p, w, mode_re, mode_im)
+        return proj[0], proj[1]
 
-    def substep2(self, x, v, p, w, w1, mode_re0, mode_im0, mode_re1,
-                 mode_im1, v1=None):
-        """Step-start state + streamed midpoint weights/velocities + mode
-        scalars -> (x2, v2, w2, (p_c, p_s)).  Frozen streams return the
-        inputs.  Packed mode: pass substep 1's refreshed stream as `p`,
-        w1=None.  stream_v1: pass substep 1's v1."""
-        particle = (x, v, p, w) \
-            + ((w1,) if self.has_w and not self.packed else ()) \
-            + ((v1,) if self.stream_v1 else ())
-        scal = ((mode_re0, mode_im0, mode_re1, mode_im1)
-                if self.has_v and not self.stream_v1
-                else (mode_re1, mode_im1))
-        *pouts, proj = self._run(2, particle, scal)
-        i = 0
-        x_out = pouts[i]
-        i += 1
-        v_out = pouts[i] if self.has_v else v
-        i += 1 if self.has_v else 0
-        w_out = pouts[i] if self.has_w else w
-        return x_out, v_out, w_out, (proj[0], proj[1])
+    def substep2(self, x, v, p, w, mode_re0, mode_im0, mode_re1, mode_im1):
+        """Step-start state + step-start and midpoint modes
+        -> (x2, v2, w2, (p_c, p_s))."""
+        x2, v2, w2, proj = self._sub(2, x.shape[-1])(
+            x, v, p, w, mode_re0, mode_im0, mode_re1, mode_im1)
+        return x2, v2, w2, (proj[0], proj[1])
 
-    def _run(self, substep, particle_arrays, mode_scalars):
-        """ONE species-fused pallas_call on the full state — (ns, n)
-        stacked or flat (ns*n,), see make_substep_call's fn — no
-        per-species slicing or output re-stacking (each forced XLA to
-        materialize a state-sized copy per substep; the fused layout
-        measures ns=2 per-marker throughput at 1.03x single-species,
-        docs/performance.md multi-species section)."""
-        shape = particle_arrays[0].shape
-        n = (shape[-1] if len(shape) > 1
-             else shape[0] // self.cfg.nspecies)
-        if self.axis_name is not None:
-            # replicated mode scalars -> varying, so every kernel input
-            # carries the same manual-axes set under shard_map
-            mode_scalars = tuple(
-                jax.lax.pcast(m, self.axis_name, to="varying")
-                for m in mode_scalars)
-        fn = self._sub(substep, n)
-        return fn(*particle_arrays, *mode_scalars)

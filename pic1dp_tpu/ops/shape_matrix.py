@@ -9,7 +9,7 @@ interpolation matrix S (2 nonzeros per row) — as a PETSc AIJ matrix rebuilt
     deposit:  rho_grid = S^T w     (reference src/pic1dp_interaction.F90:46-78)
     gather:   E_p      = S  E      (reference :213-220)
 
-On TPU the AIJ variants collapse to strategy 3's array form: the COO triplet
+Here the AIJ variants collapse to strategy 3's array form: the COO triplet
 is (ix0, ix1, w0, w1) per particle, assembled once per substep position and
 applied with segment-sum (deposit) and take (gather).  This is the stored-
 shape cross-check path; the production hot loop is matrix-free spectral
@@ -95,9 +95,9 @@ class ShapeMatrix(NamedTuple):
                chunk: int = 16384) -> jnp.ndarray:
         """S grid -> per-particle values (the SpMV gather).
 
-        method "take" uses dynamic gather (fast on CPU); "twolevel" uses the
-        factorized one-hot MXU contraction (fast on TPU, where dynamic
-        gathers serialize — see ops/gather.py)."""
+        method "take" uses dynamic gather (the fastest on the H100 and the
+        CPU); "twolevel" uses the factorized one-hot contraction (a test
+        reference — see ops/gather.py)."""
         if method == "twolevel":
             from pic1dp_tpu.ops.gather import take_twolevel
 

@@ -5,9 +5,9 @@ of Fourier modes: it assembles an nx-by-nmode cosine matrix and an nx-by-nmode
 (-sine) matrix as PETSc AIJ matrices (reference src/pic1dp_field.F90:176-210)
 and applies them as distributed SpMV pairs per step (:218-270).
 
-On TPU the same partial DFT is two tiny dense matmuls on the replicated field
-(nx <= 4096, nmode ~ 1); everything here compiles to a handful of MXU/VPU ops
-and fuses into the surrounding step.
+Here the same partial DFT is two tiny dense matmuls on the replicated field
+(nx <= 4096, nmode ~ 1), which compile to a handful of small ops and fuse
+into the surrounding step.
 
 Conventions (must match the reference bit-for-bit in structure so growth-rate
 comparisons are apples-to-apples, reference src/pic1dp_field.F90:218-257):
@@ -30,8 +30,17 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
 import jax.numpy as jnp
 import numpy as np
+
+# float32 matrix products run in TF32 on tensor-core GPUs unless asked for
+# full precision; the field and the written E/rho streams need all digits
+_HI = jax.lax.Precision.HIGHEST
+
+
+def _mm(a, b):
+    return jnp.matmul(a, b, precision=_HI)
 
 
 class SpectralOperator(NamedTuple):
@@ -59,17 +68,17 @@ class SpectralOperator(NamedTuple):
         """rho (nx,) -> (E (nx,), mode_re (nmode,), mode_im (nmode,))."""
         nx = self.fre.shape[0]
         dtype = rho.dtype
-        mode_im = -(self.fre.T @ rho) / nx
-        mode_re = (self.fim.T @ rho) / nx
+        mode_im = -_mm(self.fre.T, rho) / nx
+        mode_re = _mm(self.fim.T, rho) / nx
         mode_re = mode_re * self.grad_inv
         mode_im = mode_im * self.grad_inv
-        electric = 2.0 * (self.fre @ mode_re + self.fim @ mode_im)
+        electric = 2.0 * (_mm(self.fre, mode_re) + _mm(self.fim, mode_im))
         return electric.astype(dtype), mode_re, mode_im
 
     def e_grid(self, mode_re: jnp.ndarray, mode_im: jnp.ndarray) -> jnp.ndarray:
         """E(x) on the grid from the E-field mode components
         (reference src/pic1dp_field.F90:250-257)."""
-        return 2.0 * (self.fre @ mode_re + self.fim @ mode_im)
+        return 2.0 * (_mm(self.fre, mode_re) + _mm(self.fim, mode_im))
 
     def rho_grid_from_projections(self, p_c: jnp.ndarray, p_s: jnp.ndarray,
                                   lx: float) -> jnp.ndarray:
@@ -78,7 +87,7 @@ class SpectralOperator(NamedTuple):
         grid rho additionally contains the modes the solver discards)."""
         rho_re = p_c * (1.0 / lx)
         rho_im = -p_s * (1.0 / lx)
-        return 2.0 * (self.fre @ rho_re + self.fim @ rho_im)
+        return 2.0 * (_mm(self.fre, rho_re) + _mm(self.fim, rho_im))
 
 
 # ---- matrix-free (iptclshape=4-style) spectral hot path -------------------
@@ -96,7 +105,7 @@ class SpectralOperator(NamedTuple):
 # exactly, up to float summation order.  Likewise the gather is the kept-mode
 # expansion of E evaluated at the same two neighbor cells, equal to the
 # reference's VecScatter + hat interpolation (src/pic1dp_interaction.F90:239-258)
-# of the mode-reconstructed grid E.  On TPU this turns the classic PIC
+# of the mode-reconstructed grid E.  This turns the classic PIC
 # scatter/gather bottleneck into pure elementwise work + reductions.
 #
 # The angle at the second neighbor is obtained by a constant-angle rotation
@@ -122,7 +131,7 @@ def mode_trig(x, lx, nx: int, modes: tuple[int, ...]):
     # Every scalar constant below is typed to x.dtype: a bare np.float64
     # scalar would silently promote the whole f32 trig chain (and thus e_p
     # and w) to f64 under jax_enable_x64, so the "f32 path" tested on CPU
-    # would not be the f32 path that runs on TPU.  The constants themselves
+    # would not be the f32 path that runs on the GPU.  The constants themselves
     # are computed in f64 first for accuracy, then narrowed.
     scalar = np.dtype(x.dtype).type
     out = []

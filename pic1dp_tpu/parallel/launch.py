@@ -1,18 +1,18 @@
-"""Multi-host launch utilities.
+"""Multi-process launch utilities.
 
 The reference launches with `mpiexec -n NPE_RUN ./pic1dp` over MPI
-(reference run/Makefile:38-48, Makefile:38-39).  The TPU-native equivalent is
-single-controller-per-host JAX: every host runs the same program,
-`jax.distributed.initialize` wires the hosts over DCN, and the global device
-mesh spans the pod slice.  The particle axis is sharded over ALL devices
-(ICI within a slice, DCN across hosts handled by the runtime); per-step
-collectives are the (2, nmode)-scalar mode-projection psums, so cross-host
-traffic per step is a few hundred bytes — weak scaling is by construction.
+(reference run/Makefile:38-48, Makefile:38-39).  The JAX equivalent is one
+process per host (or per GPU): every process runs the same program,
+`jax.distributed.initialize` connects them, and the global device mesh
+spans every GPU of the job.  The particle axis is sharded over all devices;
+XLA hands the collectives to NCCL (NVLink within a host, the network across
+hosts).  The per-step collectives are the (2, nmode)-scalar mode-projection
+psums, a few hundred bytes, so weak scaling holds by construction.
 
-Typical pod-slice entrypoint:
+Typical multi-process entry point:
 
     from pic1dp_tpu.parallel import launch
-    launch.initialize()                      # no-op on single host
+    launch.initialize("host0:1234", num_processes=2, process_id=rank)
     sim = Simulation(cfg, mesh=launch.global_mesh(), out_path="run")
     sim.run()                                # only process 0 writes output
 """
@@ -21,24 +21,16 @@ from __future__ import annotations
 
 import jax
 
-from pic1dp_tpu.parallel.mesh import AXIS, Mesh, make_mesh
+from pic1dp_tpu.parallel.mesh import Mesh, make_mesh
 
 
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """jax.distributed.initialize with auto-detection (TPU pods detect all
-    arguments from the environment); safe no-op for single-process runs."""
-    if num_processes is None and coordinator_address is None:
-        try:
-            import os
-
-            if not (os.environ.get("COORDINATOR_ADDRESS")
-                    or os.environ.get("TPU_WORKER_HOSTNAMES")
-                    or os.environ.get("MEGASCALE_COORDINATOR_ADDRESS")):
-                return  # single host, nothing to do
-        except Exception:  # noqa: BLE001
-            return
+    """jax.distributed.initialize with explicit arguments.  Called with
+    none, it relies on JAX's own cluster detection (SLURM, Open MPI and
+    the other environments JAX recognizes), which raises if it finds no
+    cluster."""
     jax.distributed.initialize(coordinator_address=coordinator_address,
                                num_processes=num_processes,
                                process_id=process_id)

@@ -6,12 +6,14 @@ contiguous block of the particle Vecs (src/pic1dp_particle.F90:89-130),
 deposits onto a private full grid, and MPI_Allreduces the grid
 (src/pic1dp_interaction.F90:130-135); particles never migrate.
 
-TPU-native equivalent: a 1-D `jax.sharding.Mesh` over the devices with the
+The JAX equivalent: a 1-D `jax.sharding.Mesh` over the devices with the
 particle axis sharded (PartitionSpec(None, 'p') on the (nspecies, nparticle)
 arrays) and every field array replicated.  The whole RK2 step runs under
-`shard_map`; the only collectives are the psums closing the charge deposition
-and the diagnostic reductions — both ride ICI within a slice (DCN across
-hosts via the standard jax.distributed runtime).
+`shard_map`; the only collectives are the psums closing the charge
+deposition and the diagnostic reductions, which XLA hands to NCCL (NVLink
+between the GPUs of a host; the network across hosts via the
+jax.distributed runtime).  Every GPU reaches every other at the same rate,
+so the mesh follows the algorithm alone.
 
 Weak scaling is by construction: per-device work is N_local = N / n_devices
 for every phase, and the psum payload is the tiny replicated grid (nx <= 4096
@@ -43,7 +45,7 @@ except ImportError:  # pragma: no cover
 def shard_map(f, mesh, in_specs, out_specs):
     # check_vma=False: the varying-manual-axes checker cannot yet type
     # pallas_call bodies replayed by the interpret-mode HLO interpreter
-    # (constants come out unvarying); our psum placement is instead validated
+    # (constants come out unvarying); the psum placement is instead validated
     # by the sharded-vs-single equivalence tests in tests/test_parallel.py.
     return _shard_map(f, mesh=mesh, in_specs=in_specs, out_specs=out_specs,
                       check_vma=False)
@@ -82,14 +84,14 @@ class ShardedStepper:
     single-device and multi-device paths share every line of physics.
     """
 
-    def __init__(self, cfg: Config, mesh: Mesh):
+    def __init__(self, cfg: Config, mesh: Mesh, interpret: bool = False):
         if cfg.nparticle_max % mesh.size:
             raise ValueError(
                 f"nparticle_max={cfg.nparticle_max} must be divisible by the "
                 f"mesh size {mesh.size}")
         self.cfg = cfg
         self.mesh = mesh
-        self.local = Stepper(cfg, axis_name=AXIS)
+        self.local = Stepper(cfg, axis_name=AXIS, interpret=interpret)
         self.sp = self.local.sp
         specs = state_specs()
 
@@ -131,10 +133,7 @@ class ShardedStepper:
     def make_multi_step(self, k: int):
         """Jitted k-step lax.scan, the WHOLE scan inside one shard_map (one
         dispatch per output interval, same as Stepper.make_multi_step).
-        Reuses Stepper.multi_step_body, so the sharded path gets the same
-        packed-p||w1 carry and the flat (ns*N_local,) carry treatment (the
-        multi-species sublane-relayout fix) — inside shard_map the body sees
-        per-device shard lengths, which is what the eligibility checks and
+        Inside shard_map the body sees the per-device shards, which is what
         the kernels want."""
         specs = state_specs()
         return jax.jit(shard_map(

@@ -9,7 +9,7 @@ SuperKISS (:1004-1039), together with its seeding schemes (:244-351), warm-up
 carry buffer (:784-914).
 
 Purpose: "deterministic multirand-compatible particle loading" — a
-constant-seed run of the TPU framework loads marker-for-marker the same
+constant-seed run of this framework loads marker-for-marker the same
 particles as the Fortran reference, so physics trajectories can be compared
 directly (see BASELINE.json north_star).
 

@@ -1,6 +1,6 @@
 """Command-line simulation driver.
 
-TPU-native replacement for the reference's build-and-run harness
+Replacement for the reference's build-and-run harness
 (Makefile `make run`, reference run/Makefile:38-48): where the reference
 bakes all parameters into src/pic1dp_input.F90 at compile time, here a run
 is a preset name or a JSON config (Config.to_json / from_json) plus
@@ -69,8 +69,8 @@ def main(argv=None) -> int:
                     help="shard the particle axis over an n-device mesh "
                     "(default: all devices if more than one)")
     ap.add_argument("--distributed", action="store_true",
-                    help="initialize the multi-host JAX runtime first "
-                    "(pod slices; parallel/launch.py)")
+                    help="initialize the multi-process JAX runtime first, "
+                    "from JAX's cluster detection (parallel/launch.py)")
     ap.add_argument("--profile", metavar="<trace dir>", default=None,
                     help="capture a jax.profiler trace of the run")
     ap.add_argument("--phase-table", action="store_true",

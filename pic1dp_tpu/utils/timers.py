@@ -1,6 +1,6 @@
 """Cumulative wall-clock phase timers.
 
-TPU-native re-design of the reference's 40-slot wtimer module
+A re-design of the reference's 40-slot wtimer module
 (src/wtimer.F90:40-171) and its end-of-run percentage table
 (src/pic1dp_output.F90:576-627).  Differences by design:
 

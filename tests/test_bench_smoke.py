@@ -1,8 +1,8 @@
-"""bench.py end-to-end smoke on CPU: the driver runs `python bench.py` at
-round end to produce the committed BENCH artifact, so a regression in the
-harness (not just the kernels it times) must fail the suite, not the round.
+"""bench.py end-to-end smoke on CPU: a regression in the harness (not just
+in the kernels it times) must fail the suite.
 
-Tiny sizes; asserts the ONE-JSON-line contract and the required fields."""
+Tiny sizes; asserts the ONE-JSON-line contract and the required fields,
+including the device the rates were measured on."""
 
 import json
 import os
@@ -26,6 +26,8 @@ def test_bench_cpu_smoke():
     assert len(lines) == 1, lines  # the driver contract: ONE JSON line
     payload = json.loads(lines[0])
     assert payload["metric"] == "particles_pushed_per_sec_per_chip"
+    assert payload["device"] == {"platform": "cpu", "kind": "cpu",
+                                 "count": payload["device"]["count"]}
     assert payload["value"] > 0
     assert payload["unit"] == "pushes/s"
     assert payload["vs_baseline"] > 0

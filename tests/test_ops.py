@@ -230,8 +230,8 @@ class TestShapeMatrix:
         assert lhs == pytest.approx(rhs, rel=1e-12)
 
     def test_deposit_onehot_matches_segment(self):
-        """The stored-COO flat one-hot deposit (the nx<=1024 perf winner on
-        TPU, bench headline path) must equal the segment_sum deposit to
+        """The stored-COO flat one-hot deposit (the AUTO choice below
+        nx=512) must equal the segment_sum deposit to
         summation-order tolerance, including the chunk-padding tail."""
         _, s = self._mat(n=500)  # 500 % chunk != 0 -> exercises padding
         val = jax.random.normal(jax.random.PRNGKey(5), (500,), jnp.float64)

@@ -150,7 +150,7 @@ def test_two_maxwellian_species_match_two_stream_equilibrium():
 
 
 def test_multimode_growth_and_structure():
-    """Multi-mode production path (VERDICT r2 missing #2/#3): one nonlinear
+    """Multi-mode production path: one nonlinear
     run keeping modes (1, 2, 3) — box k1 = 0.1, all three strongly unstable
     with distinct rates — must grow EACH mode at its own dispersion root
     (per-k partial-DFT solve + multi-mode trig recurrence validated at

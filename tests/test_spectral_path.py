@@ -117,14 +117,14 @@ def _pallas_cases():
                          ids=lambda c: c if isinstance(c, str) else "")
 def test_pallas_matches_spectral(name, cfg):
     """The fused Pallas substeps (interpret mode on CPU) must reproduce the
-    XLA spectral path bitwise-closely for every (linear, deltaf, equilibrium)
-    stream variant — including the in-kernel recomputation of the midpoint
-    positions and the single-exponential -f0'/f0 forms."""
+    XLA spectral path to float64 roundoff for every (linear, deltaf,
+    equilibrium) stream variant — including kernel 2's recomputation of the
+    midpoint state and the single-exponential -f0'/f0 forms."""
     from pic1dp_tpu.config import DepositMethod
 
     cfg_p = dataclasses.replace(cfg, deposit_method=DepositMethod.PALLAS)
     st_x = Stepper(cfg)
-    st_p = Stepper(cfg_p)
+    st_p = Stepper(cfg_p, interpret=True)
     assert st_p.deposit_method == DepositMethod.PALLAS
     state = st_x.initial_field(load_particles(cfg, jax.random.PRNGKey(3)))
     a, b = state, state
@@ -141,11 +141,9 @@ def test_pallas_matches_spectral(name, cfg):
 @pytest.mark.parametrize("modes", [(1,), (1, 2, 3)],
                          ids=["single", "multimode-recurrence"])
 def test_pallas_f32_poly_trig_matches_xla(modes):
-    """The f32 hot path replaces Mosaic's generic sin/cos with exact-quadrant
-    degree-5 polynomials (max err ~2e-7, a few f32 ulp; extra modes via the
-    angle-addition recurrence, ~3e-7 error per mode unit).  Against the XLA
-    f32 spectral path the per-step divergence must stay at trig-roundoff
-    level."""
+    """The f32 kernels take cos/sin of the integer grid angles from a
+    table gather instead of computing them.  Against the XLA f32 spectral
+    path the per-step divergence must stay at trig-roundoff level."""
     from pic1dp_tpu.config import DepositMethod
 
     cfg = bump_on_tail_default(nx=192, nparticle_max=8192, dtype="float32",
@@ -155,7 +153,7 @@ def test_pallas_f32_poly_trig_matches_xla(modes):
                                   init_amp_cos=(1e-5, 0.0),
                                   init_amp_sin=(1e-4, 5e-5))
     cfg_p = dataclasses.replace(cfg, deposit_method=DepositMethod.PALLAS)
-    st_x, st_p = Stepper(cfg), Stepper(cfg_p)
+    st_x, st_p = Stepper(cfg), Stepper(cfg_p, interpret=True)
     state = st_x.initial_field(load_particles(cfg, jax.random.PRNGKey(5)))
     a, b = state, state
     for _ in range(5):
@@ -182,7 +180,7 @@ def test_pallas_bump_on_tail_degenerate_density():
         sp = dataclasses.replace(cfg.species[0], density=density)
         cfg = dataclasses.replace(cfg, species=(sp,))
         cfg_p = dataclasses.replace(cfg, deposit_method=DepositMethod.PALLAS)
-        st_x, st_p = Stepper(cfg), Stepper(cfg_p)
+        st_x, st_p = Stepper(cfg), Stepper(cfg_p, interpret=True)
         state = st_x.initial_field(load_particles(cfg, jax.random.PRNGKey(7)))
         a = st_x.step(st_x.step(state))
         b = st_p.step(st_p.step(state))
@@ -193,18 +191,19 @@ def test_pallas_bump_on_tail_degenerate_density():
 
 
 def test_bf16_weights_matches_f32():
-    """cfg.bf16_weights quantizes ONLY the p storage and the intra-step w1
-    stream (docs/performance.md error budget): after one step x must be
-    bitwise-identical to the f32 run (the position update never touches p or
-    w1), v agrees to field-perturbation level, and w within the ~0.4%/step
-    quantization budget.  Dtypes: p bfloat16, everything else f32."""
+    """cfg.bf16_weights quantizes ONLY the p storage and the midpoint w1 in
+    the substep-2 drive (docs/performance.md error budget): after one step
+    x must be bitwise-identical to the f32 run (the position update never
+    touches p or w1), v agrees to field-perturbation level, and w within the
+    ~0.4%/step quantization budget.  Dtypes: p bfloat16, everything else
+    f32."""
     from pic1dp_tpu.config import DepositMethod
 
     cfg = bump_on_tail_default(nx=192, nparticle_max=4096, dtype="float32",
                                deposit_method=DepositMethod.PALLAS,
                                verbosity=0)
     cfg_b = dataclasses.replace(cfg, bf16_weights=True)
-    st, st_b = Stepper(cfg), Stepper(cfg_b)
+    st, st_b = Stepper(cfg, interpret=True), Stepper(cfg_b, interpret=True)
     state = st.initial_field(load_particles(cfg, jax.random.PRNGKey(11)))
     state_b = st_b.initial_field(load_particles(cfg_b, jax.random.PRNGKey(11)))
     assert str(state_b.p.dtype) == "bfloat16"
@@ -231,96 +230,10 @@ def test_bf16_weights_matches_f32():
                                rtol=0, atol=2e-2)
 
 
-def test_packed_matches_separate_bf16_streams():
-    """The packed p||w1 f32 layout (ops/pallas_kernels.pack_pw) must be
-    BITWISE identical to the separate bf16-stream layout: the in-register
-    RTNE (bits + 0x7fff + lsb) is exactly .astype(bfloat16), and the p
-    halves are the p bits.  Same quantized physics, different DMA layout."""
-    from pic1dp_tpu.config import DepositMethod
-
-    cfg = bump_on_tail_default(nx=192, nparticle_max=4096, dtype="float32",
-                               deposit_method=DepositMethod.PALLAS,
-                               bf16_weights=True, verbosity=0)
-    st_packed = Stepper(cfg)
-    assert st_packed._packed
-    import os
-
-    os.environ["PIC1DP_PACKED"] = "0"
-    try:
-        st_sep = Stepper(cfg)
-    finally:
-        del os.environ["PIC1DP_PACKED"]
-    assert not st_sep._packed
-    state = st_packed.initial_field(load_particles(cfg, jax.random.PRNGKey(17)))
-    a, b = state, state
-    for _ in range(3):
-        a = st_packed.step(a)
-        b = st_sep.step(b)
-    for field in ("x", "v", "w", "mode_re", "mode_im"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(a, field)), np.asarray(getattr(b, field)),
-            err_msg=field)
-    assert str(a.p.dtype) == "bfloat16"  # single-step entry restores p
-
-
-def test_packed_multi_step_matches_per_step():
-    """The packed-carry lax.scan (pack once, stream refreshed in place)
-    must equal per-step stepping exactly — extends the chunked-vs-per-step
-    pin (test_tools.py) to the bf16_weights configuration."""
-    from pic1dp_tpu.config import DepositMethod
-
-    cfg = bump_on_tail_default(nx=192, nparticle_max=4096, dtype="float32",
-                               deposit_method=DepositMethod.PALLAS,
-                               bf16_weights=True, verbosity=0)
-    st = Stepper(cfg)
-    assert st._packed and st._packed_scan_ok(cfg.nparticle_max)
-    state = st.initial_field(load_particles(cfg, jax.random.PRNGKey(19)))
-    a = st.make_multi_step(4)(state)
-    b = state
-    for _ in range(4):
-        b = st.step(b)
-    for field in ("x", "v", "p", "w", "mode_re", "mode_im"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(a, field)), np.asarray(getattr(b, field)),
-            err_msg=field)
-
-
-def test_flat_carry_multi_step_matches_per_step_two_species():
-    """make_multi_step flattens the Pallas scan carry to (ns*N,) — a
-    (ns, N) array on TPU sublane-pads the species dim and pays a physical
-    relayout per kernel call (2.6x step time at ns = 2, docs/performance.md
-    round 4).  The flat scan must equal per-step (ns, N) stepping exactly,
-    including the multi-species packed stream."""
-    import dataclasses
-
-    from pic1dp_tpu.config import DepositMethod, Equilibrium, SpeciesConfig
-
-    sp = SpeciesConfig(charge=-1.0, mass=1.0, temperature=1.0, density=0.5,
-                       v0=2.0)
-    cfg = dataclasses.replace(
-        bump_on_tail_default(nx=64, nparticle_max=4096, dtype="float32",
-                             deposit_method=DepositMethod.PALLAS,
-                             bf16_weights=True, verbosity=0),
-        equilibrium=Equilibrium.MAXWELLIAN,
-        species=(sp, dataclasses.replace(sp, v0=-2.0))).validate()
-    st = Stepper(cfg)
-    state = st.initial_field(load_particles(cfg, jax.random.PRNGKey(23)))
-    assert state.x.shape == (2, 4096)
-    a = st.make_multi_step(3)(state)
-    b = state
-    for _ in range(3):
-        b = st.step(b)
-    for field in ("x", "v", "p", "w", "mode_re", "mode_im"):
-        va = np.asarray(getattr(a, field))
-        np.testing.assert_array_equal(va, np.asarray(getattr(b, field)),
-                                      err_msg=field)
-        assert va.shape == np.asarray(getattr(state, field)).shape
-
-
 def test_bf16_weights_xla_fallback_matches():
-    """Capacities that miss the 2048 granularity fall back to the XLA
-    spectral path, which reads the bf16 p through ordinary promotion — the
-    run must still work and stay close to its f32 twin."""
+    """The XLA spectral path reads the bf16 p through ordinary promotion
+    and rounds w1 like the kernels — at an arbitrary capacity the run must
+    work and stay close to its f32 twin."""
     cfg = bump_on_tail_default(nx=64, nparticle_max=3072, dtype="float32",
                                verbosity=0)
     cfg_b = dataclasses.replace(cfg, bf16_weights=True)
@@ -333,98 +246,6 @@ def test_bf16_weights_xla_fallback_matches():
     scale = np.max(np.abs(np.asarray(a.w))) + 1e-30
     np.testing.assert_allclose(np.asarray(b.w) / scale,
                                np.asarray(a.w) / scale, rtol=0, atol=1e-2)
-
-
-def test_sincos_turns_raw_accuracy():
-    """_sincos_turns_raw (fused range-reduction quadrant trig, the VPU-bound
-    hot-loop chain) must match exact cos/sin(2*pi*t) to the same <~1 f32 ulp
-    bound as the original _sincos_turns for every realizable hot-loop angle
-    tm = m*ix0/nx (integer ix0), plus a dense irrational-t sweep."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from pic1dp_tpu.ops.pallas_kernels import _sincos_turns, _sincos_turns_raw
-
-    cases = []
-    for nx in (64, 192, 1024):
-        for m in (1, 2, 3, 4, 7, 8):
-            ix0 = np.arange(nx, dtype=np.float32)
-            cases.append(ix0 * np.float32(m / nx))
-    cases.append(np.linspace(0.0, 7.999, 40001).astype(np.float32))
-    tm = np.concatenate(cases)
-    c_raw, s_raw = (np.asarray(v) for v in _sincos_turns_raw(jnp.asarray(tm)))
-    # f64 reference at the EXACT f32 argument
-    ref_c = np.cos(2.0 * np.pi * tm.astype(np.float64))
-    ref_s = np.sin(2.0 * np.pi * tm.astype(np.float64))
-    ulp = 1.2e-7
-    assert np.max(np.abs(c_raw - ref_c)) < 2 * ulp
-    assert np.max(np.abs(s_raw - ref_s)) < 2 * ulp
-    # no worse than the original two-floor chain on its own domain
-    t_in = tm - np.floor(tm)
-    c_old, s_old = (np.asarray(v)
-                    for v in _sincos_turns(jnp.asarray(t_in.astype(np.float32))))
-    assert np.max(np.abs(c_raw - ref_c)) <= np.max(np.abs(c_old - ref_c)) + ulp
-    assert np.max(np.abs(s_raw - ref_s)) <= np.max(np.abs(s_old - ref_s)) + ulp
-
-
-def test_bf16_misaligned_pallas_raises_without_optin():
-    """A bf16_weights config whose per-trace particle length misses the 2048
-    granularity must FAIL loudly instead of silently taking the XLA fallback
-    (which skips the w1-stream quantization — same config, different physics
-    rounding per shard size).  allow_pallas_fallback=True opts into the
-    fallback explicitly, with the warning."""
-    import pytest
-
-    from pic1dp_tpu.config import DepositMethod
-
-    cfg = bump_on_tail_default(nx=64, nparticle_max=3072, dtype="float32",
-                               deposit_method=DepositMethod.PALLAS,
-                               bf16_weights=True, verbosity=0)
-    st = Stepper(cfg)
-    state = st.initial_field(load_particles(cfg, jax.random.PRNGKey(5)))
-    with pytest.raises(ValueError, match="allow_pallas_fallback"):
-        st.step(state)
-    # multi-step scan path hits the same gate
-    with pytest.raises(ValueError, match="allow_pallas_fallback"):
-        st.make_multi_step(2)(state)
-
-    cfg_ok = dataclasses.replace(cfg, allow_pallas_fallback=True)
-    st_ok = Stepper(cfg_ok)
-    state_ok = st_ok.initial_field(load_particles(cfg_ok, jax.random.PRNGKey(5)))
-    with pytest.warns(RuntimeWarning, match="falling back"):
-        out = st_ok.step(state_ok)
-    assert np.isfinite(np.asarray(out.w)).all()
-
-
-def test_stacked_carry_knob_matches_flat():
-    """PIC1DP_FLAT_CARRY=0 (the multispecies-bench A/B knob that keeps the
-    stacked (ns, N) scan carry) must be physics-identical to the default
-    flat (ns*N,) carry — the 2.71x difference is layout cost only."""
-    import os
-
-    from pic1dp_tpu.config import DepositMethod, Equilibrium, SpeciesConfig
-
-    sp = SpeciesConfig(charge=-1.0, mass=1.0, temperature=1.0, density=0.5,
-                       v0=2.0)
-    from pic1dp_tpu.config import bump_on_tail_default as _bot
-
-    cfg = dataclasses.replace(
-        _bot(nx=64, nparticle_max=2048, dtype="float32",
-             deposit_method=DepositMethod.PALLAS, verbosity=0),
-        equilibrium=Equilibrium.MAXWELLIAN,
-        species=(sp, dataclasses.replace(sp, v0=-2.0))).validate()
-    st = Stepper(cfg)
-    state = st.initial_field(load_particles(cfg, jax.random.PRNGKey(3)))
-    a = st.make_multi_step(3)(state)
-    os.environ["PIC1DP_FLAT_CARRY"] = "0"
-    try:
-        b = Stepper(cfg).make_multi_step(3)(state)
-    finally:
-        del os.environ["PIC1DP_FLAT_CARRY"]
-    for field in ("x", "v", "w", "mode_re", "mode_im"):
-        np.testing.assert_array_equal(np.asarray(getattr(a, field)),
-                                      np.asarray(getattr(b, field)),
-                                      err_msg=field)
 
 
 def test_bf16_shifted_multispecies_warns():
@@ -456,10 +277,10 @@ def test_bf16_shifted_multispecies_warns():
 
 
 def test_f32_config_stays_f32_under_x64():
-    """TPU-equivalence guarantee: with jax_enable_x64 on (the CPU test
+    """Device-equivalence guarantee: with jax_enable_x64 on (the CPU test
     environment), a dtype=float32 config must produce float32 state through
     the XLA spectral path — otherwise the "f32 path" tested on CPU is not
-    the f32 path that runs on TPU (the reference's PetscReal is a single
+    the f32 path that runs on the GPU (the reference's PetscReal is a single
     global kind, src/pic1dp_global.F90:28-31; ours must be just as airtight).
     Guards against np.float64 scalar constants promoting a jitted chain
     (the round-1 mode_trig bug)."""
@@ -501,30 +322,140 @@ def test_twolevel_stepper_matches_spectral():
                                    err_msg=field)
 
 
-def test_stream_v1_bitwise_matches_recompute(monkeypatch):
-    """stream_v1 (the round-3 default: substep 1 streams the midpoint
-    velocities, substep 2 reads them instead of re-deriving) must be
-    BITWISE identical to the recompute layout — the streamed value is the
-    same expression over the same inputs with the same baked constants
-    (ops/pallas_kernels.py make_substep_call docstring)."""
+@pytest.mark.parametrize("n", [1, 1000, 1025, 3000])
+def test_pallas_masked_tail_matches_spectral(n):
+    """Capacities that are not a multiple of the kernel block: the masked
+    tail must neither deposit nor be written, at any length."""
+    from pic1dp_tpu.config import DepositMethod
+    from pic1dp_tpu.ops.pallas_kernels import BLOCK
+
+    assert n % BLOCK or n < BLOCK
+    cfg = bump_on_tail_default(nx=64, nparticle_max=n, dtype="float64",
+                               verbosity=0)
+    st_x = Stepper(cfg)
+    st_p = Stepper(dataclasses.replace(
+        cfg, deposit_method=DepositMethod.PALLAS), interpret=True)
+    state = st_x.initial_field(load_particles(cfg, jax.random.PRNGKey(n)))
+    a, b = st_x.step(state), st_p.step(state)
+    for field in ("x", "v", "w", "mode_re", "mode_im"):
+        va, vb = np.asarray(getattr(a, field)), np.asarray(getattr(b, field))
+        assert va.shape == vb.shape
+        scale = np.max(np.abs(va)) + 1e-300
+        np.testing.assert_allclose(vb / scale, va / scale, atol=1e-12,
+                                   err_msg=f"n={n}:{field}")
+
+
+def _multi_step_cases():
+    from pic1dp_tpu.config import DepositMethod, Equilibrium, SpeciesConfig
+
+    yield "bf16_one_species", bump_on_tail_default(
+        nx=192, nparticle_max=4096, dtype="float32",
+        deposit_method=DepositMethod.PALLAS, bf16_weights=True, verbosity=0)
+    sp = SpeciesConfig(charge=-1.0, mass=1.0, temperature=1.0, density=0.5,
+                       v0=2.0)
+    yield "two_species", dataclasses.replace(
+        bump_on_tail_default(nx=64, nparticle_max=3000, dtype="float32",
+                             deposit_method=DepositMethod.PALLAS,
+                             verbosity=0),
+        equilibrium=Equilibrium.MAXWELLIAN,
+        species=(sp, dataclasses.replace(sp, v0=-2.0))).validate()
+
+
+@pytest.mark.parametrize("name,cfg", list(_multi_step_cases()),
+                         ids=lambda c: c if isinstance(c, str) else "")
+def test_pallas_multi_step_matches_per_step(name, cfg):
+    """The kernels' lax.scan (in-place x/v/w writes) must equal per-step
+    stepping exactly, with the state shapes and dtypes unchanged."""
+    st = Stepper(cfg, interpret=True)
+    state = st.initial_field(load_particles(cfg, jax.random.PRNGKey(19)))
+    a = st.make_multi_step(3)(state)
+    b = state
+    for _ in range(3):
+        b = st.step(b)
+    for field in ("x", "v", "p", "w", "mode_re", "mode_im"):
+        va = np.asarray(getattr(a, field))
+        np.testing.assert_array_equal(va, np.asarray(getattr(b, field)),
+                                      err_msg=f"{name}:{field}")
+        assert getattr(a, field).shape == getattr(state, field).shape
+        assert getattr(a, field).dtype == getattr(state, field).dtype
+
+
+def _strong_weights(state):
+    """A saturated-looking state: weights at 30% of p and a strong field,
+    so that rounding w1 to bf16 moves w2 well above f32 roundoff."""
+    w = 0.3 * state.p.astype("float32") * jax.numpy.sin(state.x)
+    return dataclasses.replace(state, w=w, mode_re=state.mode_re + 0.05,
+                               mode_im=state.mode_im - 0.03)
+
+
+def test_bf16_weights_kernel_matches_xla_quantization():
+    """With bf16_weights the XLA step and the kernels round w1 at the same
+    place, so they agree to f32 roundoff — far closer than either is to the
+    f32-weight run, which differs by the quantization itself."""
     from pic1dp_tpu.config import DepositMethod
 
-    cfg = bump_on_tail_default(nx=192, nparticle_max=4096, dtype="float32",
+    cfg_b = bump_on_tail_default(nx=192, nparticle_max=4096, dtype="float32",
+                                 bf16_weights=True, verbosity=0)
+    st_x = Stepper(cfg_b)
+    st_k = Stepper(dataclasses.replace(
+        cfg_b, deposit_method=DepositMethod.PALLAS), interpret=True)
+    state = _strong_weights(
+        st_x.initial_field(load_particles(cfg_b, jax.random.PRNGKey(29))))
+    # the same markers with p widened to f32: only the w1 rounding differs
+    cfg_f = dataclasses.replace(cfg_b, bf16_weights=False)
+    state_f = dataclasses.replace(state, p=state.p.astype("float32"))
+    a, b, c = st_x.step(state), st_k.step(state), Stepper(cfg_f).step(state_f)
+    scale = np.max(np.abs(np.asarray(a.w))) + 1e-30
+    kernel_vs_xla = np.max(np.abs(np.asarray(b.w) - np.asarray(a.w))) / scale
+    quantization = np.max(np.abs(np.asarray(c.w) - np.asarray(a.w))) / scale
+    assert kernel_vs_xla < 1e-5
+    assert quantization > 10 * kernel_vs_xla
+
+
+def test_bf16_w1_quantization_identity_xla():
+    """The XLA step rounds w1 to bf16 in the substep-2 drive only: x2, v2
+    and the midpoint field are bitwise those of the unrounded step on the
+    same (bf16-representable) p; only w2 moves, by the rounded drive
+    term."""
+    cfg_b = bump_on_tail_default(nx=64, nparticle_max=2048, dtype="float32",
+                                 bf16_weights=True, verbosity=0)
+    cfg_f = dataclasses.replace(cfg_b, bf16_weights=False)
+    st_b, st_f = Stepper(cfg_b), Stepper(cfg_f)
+    state = _strong_weights(
+        st_b.initial_field(load_particles(cfg_b, jax.random.PRNGKey(31))))
+    state_f = dataclasses.replace(state, p=state.p.astype("float32"))
+    (xb, vb, wb), modes_b, _ = jax.jit(st_b._spectral_pushes)(state)
+    (xf, vf, wf), modes_f, _ = jax.jit(st_f._spectral_pushes)(state_f)
+    np.testing.assert_array_equal(np.asarray(xb), np.asarray(xf))
+    np.testing.assert_array_equal(np.asarray(vb), np.asarray(vf))
+    for mb, mf in zip(modes_b, modes_f):
+        np.testing.assert_array_equal(np.asarray(mb), np.asarray(mf))
+    dw = np.max(np.abs(np.asarray(wb) - np.asarray(wf)))
+    assert 0.0 < dw < 1e-2 * np.max(np.abs(np.asarray(wf)))
+
+
+def test_pallas_without_interpret_raises_off_gpu():
+    """Off the GPU the fused step never falls back and never interprets
+    unless asked: PALLAS without interpret=True raises."""
+    from pic1dp_tpu.config import DepositMethod
+
+    cfg = bump_on_tail_default(nx=64, nparticle_max=2048, dtype="float32",
                                deposit_method=DepositMethod.PALLAS,
                                verbosity=0)
-    monkeypatch.setenv("PIC1DP_STREAM_V1", "1")
-    st_v1 = Stepper(cfg)
-    assert st_v1._stream_v1
-    monkeypatch.setenv("PIC1DP_STREAM_V1", "0")
-    st_rc = Stepper(cfg)
-    monkeypatch.delenv("PIC1DP_STREAM_V1")
-    assert not st_rc._stream_v1
-    state = st_v1.initial_field(load_particles(cfg, jax.random.PRNGKey(19)))
-    a, b = state, state
-    for _ in range(3):
-        a = st_v1.step(a)
-        b = st_rc.step(b)
-    for field in ("x", "v", "w", "mode_re", "mode_im"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(a, field)), np.asarray(getattr(b, field)),
-            err_msg=field)
+    st = Stepper(cfg)
+    state = st.initial_field(load_particles(cfg, jax.random.PRNGKey(5)))
+    with pytest.raises(ValueError, match="interpret=True"):
+        st.step(state)
+    with pytest.raises(ValueError, match="interpret=True"):
+        st.make_multi_step(2)(state)
+
+
+@pytest.mark.parametrize("nx,expected", [(64, "onehot"), (192, "onehot"),
+                                         (1024, "segment"), (4096, "segment")])
+def test_auto_method_off_gpu(nx, expected):
+    """AUTO never picks the kernels off the GPU; the grid-path deposit is
+    the one-hot below nx=512 and XLA's scatter from there on."""
+    for shape in (ParticleShape.MATRIX_FREE, ParticleShape.EXPLICIT):
+        cfg = bump_on_tail_default(nx=nx, nparticle_max=1024, shape=shape,
+                                   verbosity=0)
+        assert Stepper(cfg).deposit_method.value == expected
